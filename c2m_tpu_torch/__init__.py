@@ -7,12 +7,16 @@ under ``csrc/``, built with nvcc at first use and bound with ctypes
 (``ops/hopper``). A tensor on the CPU takes each kernel's plain PyTorch
 version; a CUDA tensor launches the kernel or raises.
 
-Ported so far: the serving path, ``C2MGenerator.inference`` behind
-``serving.ServingModel``. Public functions take channels-last tensors
-(``[B, H, W, C]``, ``[B, T, H, W, C]``), as the JAX package does.
+Ported so far: the serving path (``C2MGenerator.inference`` behind
+``serving.ServingModel``) and the train step (``train.state``,
+``train.step`` around ``train.model.C2MTrainModel``). Public functions take
+channels-last tensors (``[B, H, W, C]``, ``[B, T, H, W, C]``), as the JAX
+package does. Entry points run on the card unless asked for the CPU.
 
-This package never imports JAX; it shares the framework-free parts of
-``c2m_tpu`` (``config.py``, ``data/synthetic.py``'s numpy scenes).
+This package imports nothing of JAX and nothing of ``c2m_tpu``: it keeps its
+own copies of the framework-free parts it needs (``config.py``, the numpy
+scenes of ``data/synthetic.py``), and tests hold the copies to the
+originals.
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,7 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from c2m_tpu.config import AppearanceEncoderParams
+from c2m_tpu_torch.config import AppearanceEncoderParams
 from c2m_tpu_torch.nn.layers import Dense, DownBlock2d, SameBlock2d
 from c2m_tpu_torch.ops.roi import roi_align
 

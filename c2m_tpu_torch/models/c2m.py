@@ -1,8 +1,10 @@
-"""C2MGenerator, inference path (port of ``c2m_tpu/models/c2m.py``).
+"""C2MGenerator (port of ``c2m_tpu/models/c2m.py``).
 
-Sampled generation (reference model.py:241-324): explicit motion latent and
-clicks, no VAE encoders, eval-mode norms. The training forward
-(``__call__`` in the JAX package) waits for the train-step port.
+``inference``: sampled generation (reference model.py:241-324) with an
+explicit motion latent and clicks, no VAE encoders, eval-mode norms.
+``forward``: the training forward (``__call__`` in the JAX package): the two
+VAE encoders give the latent, the click is drawn, the norms follow the
+module's train/eval mode.
 
 Batch layout: the padded dense, channels-last dict documented in
 ``c2m_tpu/models/c2m.py`` (video [B, T, H, W, 3], instance_mask
@@ -17,15 +19,18 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from c2m_tpu.config import Config
+from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.models.appearance import AppearanceEncoder, level_features
 from c2m_tpu_torch.models.dense_motion import (DenseMotionDecoder,
-                                               SparseMotionFeatureEncoder)
+                                               DenseMotionEncoder,
+                                               SparseMotionFeatureEncoder,
+                                               reparameterize)
 from c2m_tpu_torch.models.generator import OcclusionAwareGenerator
 from c2m_tpu_torch.models.sparse_motion import (AffineHead, DenseGATv2,
-                                                SparseMotionEstimator)
+                                                SparseMotionEstimator,
+                                                sample_click_indices)
 from c2m_tpu_torch.nn.layers import (Dense, SameBlockTwoConv2d, fold_time,
-                                     unfold_time)
+                                     unfold_time, use_compute_dtype)
 from c2m_tpu_torch.ops.raster import generate_sparse_motion
 from c2m_tpu_torch.ops.warp import resample, resize_video
 
@@ -36,7 +41,9 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # submodules whose convolutions run in ``train_params.dtype``; the GNN and
 # the latent ``fc`` stay float32, as in the JAX package
 CONV_STACKS = ("appearance_encoder", "sparse_feature_encoder",
-               "dense_generator_bw", "zconv", "generator")
+               "dense_generator_bw", "dense_generator_fw", "zconv",
+               "generator")
+VAE_ENCODERS = ("motion_encoder_bg", "motion_encoder_fg")
 
 
 def encoder_in_features(cfg: Config) -> int:
@@ -89,17 +96,32 @@ class C2MGenerator(nn.Module):
             me.sparse_motion_estimator, tpred, scene_features=scene_features)
         self.sparse_feature_encoder = SparseMotionFeatureEncoder(
             me.sparse_motion_encoder)
+        cp = mp.common_params
+        nif = tp.num_input_frames
+        sf = cp.scale_factor
+        clip = (tpred, int(tp.input_size[0] * sf), int(tp.input_size[1] * sf))
+        flows = cp.flow_channel + cp.occlusion_channel
+        enc = me.dense_motion_encoder
+        self.motion_encoder_bg = DenseMotionEncoder(
+            enc, (nif + 1) * (cp.image_channel + cp.seg_channel_bg) + flows,
+            enc.out_channel_bg, clip)
+        self.motion_encoder_fg = DenseMotionEncoder(
+            enc, (nif + 1) * (cp.image_channel + cp.seg_channel_fg
+                              + cp.instance_channel) + flows,
+            enc.out_channel_fg, clip)
         app_ch = level_features(ap, ap.num_down_blocks - 1)
         app_features = {f"enco{i}": level_features(ap, i)
                         for i in range(ap.num_down_blocks - 1)}
         self.dense_generator_bw = DenseMotionDecoder(
             me.dense_motion_decoder, tpred, me.sparse_motion_encoder,
             app_features, z_features=app_ch + 16)
+        if tp.use_fw_of:
+            self.dense_generator_fw = DenseMotionDecoder(
+                me.dense_motion_decoder, tpred, me.sparse_motion_encoder,
+                app_features, z_features=app_ch + 16)
         down = 2 ** ap.num_down_blocks
-        sf = mp.common_params.scale_factor
         self.h_app = int(tp.input_size[0] / down * sf)
         self.w_app = int(tp.input_size[1] / down * sf)
-        enc = me.dense_motion_encoder
         self.fc = Dense(enc.out_channel_bg + enc.out_channel_fg,
                         64 * self.h_app * self.w_app)
         self.zconv = SameBlockTwoConv2d(64 + app_ch, 16 * tpred, 3, 1, 1,
@@ -107,10 +129,26 @@ class C2MGenerator(nn.Module):
         self.generator = OcclusionAwareGenerator(mp.generator)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "C2MGenerator":
-        """Cast the conv stacks to ``dtype`` (train_params.dtype); the GNN,
-        ``fc`` and the rasterizer stay float32."""
+        """For serving: cast the conv stacks themselves to ``dtype``
+        (train_params.dtype); the GNN, ``fc`` and the rasterizer stay
+        float32."""
         for name in CONV_STACKS:
-            getattr(self, name).to(dtype)
+            if hasattr(self, name):
+                getattr(self, name).to(dtype)
+        return self
+
+    def use_compute_dtype(self, dtype: torch.dtype) -> "C2MGenerator":
+        """For training: the conv stacks and the VAE encoders compute in
+        ``dtype`` while every parameter stays float32 (each layer casts its
+        weight and input at use). The GNN, ``fc``, the VAE heads
+        ``fc_mu``/``fc_logvar``, the norms' statistics and the rasterizer
+        stay float32."""
+        for name in CONV_STACKS + VAE_ENCODERS:
+            if hasattr(self, name):
+                use_compute_dtype(getattr(self, name), dtype)
+        for name in VAE_ENCODERS:
+            enc = getattr(self, name)
+            enc.fc_mu.compute_dtype = enc.fc_logvar.compute_dtype = None
         return self
 
     # -- shared pieces ------------------------------------------------------
@@ -154,6 +192,27 @@ class C2MGenerator(nn.Module):
         return self.appearance_encoder(self._encoder_input(batch),
                                        batch["rois_padded"], batch["node_mask"])
 
+    def _vae_inputs(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """bg/fg VAE encoder stacks (dense_motion.py:170-203): for each
+        predicted timestep, channels = [all input frames, target frame t]."""
+        tp = self.cfg.train_params
+        nif, tpred = tp.num_input_frames, tp.num_predicted_frames
+
+        def tile_and_pair(x):
+            b, _, h, w, c = x.shape
+            inp = x[:, :nif].permute(0, 2, 3, 1, 4).reshape(b, h, w, nif * c)
+            inp = inp[:, None].expand(b, tpred, h, w, nif * c)
+            return torch.cat([inp, x[:, nif:]], dim=-1)
+
+        frames = tile_and_pair(batch["video"])
+        bg = tile_and_pair(batch["bg_mask"])
+        fg = tile_and_pair(batch["fg_mask"])
+        inst = tile_and_pair(batch["instance_mask"])
+        flows = torch.cat([batch["target_bw_of"], batch["target_bw_occ"]],
+                          dim=-1)
+        return {"bg": torch.cat([frames, bg, flows], dim=-1),
+                "fg": torch.cat([frames, fg, inst, flows], dim=-1)}
+
     def _motion_code(self, z_m: torch.Tensor, app_encoded: torch.Tensor
                      ) -> torch.Tensor:
         """z = [appearance code | per-t motion code] (dense_motion.py:218-223)."""
@@ -191,9 +250,71 @@ class C2MGenerator(nn.Module):
         src_rep = src[:, None].expand(b, tpred, *src.shape[1:]).reshape(
             b * tpred, *src.shape[1:]).contiguous()
         sm, _ = fold_time(out["sparse_motion_bw"])
-        warped = unfold_time(resample(src_rep, sm.contiguous()), tpred)
-        return {"generated_sparse": warped,
-                "generated_sparse_occ": warped * out["sparse_occ_bw"]}
+        with torch.no_grad():                      # previews carry no gradient
+            warped = unfold_time(resample(src_rep, sm.contiguous()), tpred)
+            return {"generated_sparse": warped,
+                    "generated_sparse_occ": warped * out["sparse_occ_bw"]}
+
+    # -- training forward ---------------------------------------------------
+
+    def forward(self, batch: Batch, eps: Optional[torch.Tensor] = None,
+                click_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The training forward. The norms follow ``self.training``. The VAE
+        noise ``eps`` [B, z_dim] and the ``click_mask`` [B, N] are drawn from
+        ``generator`` unless given. The rasterizer gets the GT thetas when
+        ``train_params.use_gt_training``; its outputs and the previews carry
+        no gradient (the JAX package's ``stop_gradient``s), so the theta
+        losses are the GNN's only gradient path."""
+        tp = self.cfg.train_params
+        batch = self._prepare(batch)
+        out: Dict[str, torch.Tensor] = {}
+
+        app = self._appearance(batch)
+        vae_in = self._vae_inputs(batch)
+        bg = self.motion_encoder_bg(vae_in["bg"])
+        fg = self.motion_encoder_fg(vae_in["fg"])
+        out["mu"] = torch.cat([bg["mu"], fg["mu"]], dim=-1).float()
+        out["logvar"] = torch.cat([bg["logvar"], fg["logvar"]], dim=-1).float()
+        z_m = reparameterize(out["mu"], out["logvar"], generator, eps)
+
+        if click_mask is None:
+            _, click_mask = sample_click_indices(
+                batch["num_real_nodes"], batch["node_mask"].shape[1], generator)
+        gnn = self.sparse_motion_estimator(
+            batch["nodes_x"], app["objects_feature"].float(),
+            batch["targets_theta"], batch["node_mask"], click_mask)
+        out["thetas"] = gnn["thetas"]
+        out["click_mask"] = click_mask
+
+        raster_thetas = (batch["targets_theta"] if tp.use_gt_training
+                         else gnn["thetas"])
+        instance_src = batch["instance_mask"][:, tp.num_input_frames - 1]
+        with torch.no_grad():
+            sparse = generate_sparse_motion(instance_src, batch["inst_ids"],
+                                            batch["node_mask"],
+                                            raster_thetas.float())
+        out.update(sparse)
+
+        sparse_feats = self.sparse_feature_encoder(sparse["sparse_motion_bw"])
+        z = self._motion_code(z_m, app["app_encoded"])
+        dense_bw = self.dense_generator_bw(app, sparse_feats,
+                                           sparse["sparse_motion_bw"],
+                                           sparse["sparse_occ_bw"], z)
+        out["dense_motion_bw"] = dense_bw["dense_motion"]
+        out["occlusion_bw"] = dense_bw["occlusion"]
+        if tp.use_fw_of:
+            feats_fw = self.sparse_feature_encoder(sparse["sparse_motion_fw"])
+            dense_fw = self.dense_generator_fw(app, feats_fw,
+                                               sparse["sparse_motion_fw"],
+                                               sparse["sparse_occ_fw"], z)
+            out["dense_motion_fw"] = dense_fw["dense_motion"]
+            out["occlusion_fw"] = dense_fw["occlusion"]
+
+        out["generated"] = self._generate_frames(batch, dense_bw)
+        out.update(self._sparse_previews(batch, out))
+        return out
 
     # -- inference ----------------------------------------------------------
 

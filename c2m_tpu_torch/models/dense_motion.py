@@ -1,23 +1,26 @@
-"""Dense motion network, inference path (port of
-``c2m_tpu/models/dense_motion.py``).
+"""Dense motion network (port of ``c2m_tpu/models/dense_motion.py``).
 
-``SparseMotionFeatureEncoder`` (3D-conv pyramid over the sparse flow) and
-the plain ``DenseMotionDecoder``: at each scale the appearance skip is
-warped by the resized sparse flow and masked by the resized sparse
-occlusion in one pass of kernel K1 (``resample_masked``). The VAE encoders
-and ``reparameterize`` belong to the training port; the frame-scan and
-space-to-depth variants were TPU memory/layout rewrites of the same math.
+``DenseMotionEncoder`` (the 3D-conv VAE encoder of the training forward,
+with ``reparameterize``), ``SparseMotionFeatureEncoder`` (3D-conv pyramid
+over the sparse flow) and the plain ``DenseMotionDecoder``: at each scale
+the appearance skip is warped by the resized sparse flow and masked by the
+resized sparse occlusion in one pass of kernel K1 (``resample_masked``,
+whose image gradient reaches the appearance encoder in training). The
+frame-scan and space-to-depth variants of the JAX package were memory and
+layout rewrites of the same math for its own hardware.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from c2m_tpu.config import DenseMotionDecoderParams, SparseMotionEncoderParams
-from c2m_tpu_torch.nn.layers import (Conv, DownBlock3d, InstanceNorm,
+from c2m_tpu_torch.config import (DenseMotionDecoderParams,
+                                  DenseMotionEncoderParams,
+                                  SparseMotionEncoderParams)
+from c2m_tpu_torch.nn.layers import (Conv, Dense, DownBlock3d, InstanceNorm,
                                      SameBlock3d, UpBlock2d, fold_time, leaky,
                                      unfold_time)
 from c2m_tpu_torch.ops.warp import resample_masked, resize_bilinear, resize_flow
@@ -25,6 +28,52 @@ from c2m_tpu_torch.ops.warp import resample_masked, resize_bilinear, resize_flow
 
 def sparse_level_features(p: SparseMotionEncoderParams, i: int) -> int:
     return min(p.max_expansion, p.block_expansion * (2 ** i))
+
+
+class DenseMotionEncoder(nn.Module):
+    """3D-conv VAE encoder (motion_autoencoder.py:11-59): one DownBlock3d
+    per entry of the config's t/h/w kernel/stride/padding lists, then the
+    linear heads ``fc_mu`` / ``fc_logvar`` (float32) on the NTHWC flatten of
+    the last map, the order the JAX package's Dense kernels expect."""
+
+    def __init__(self, p: DenseMotionEncoderParams, in_features: int,
+                 output_channel: int, video_shape: Tuple[int, int, int]):
+        """video_shape: (T, H, W) of the input clip, which fixes the
+        flattened width of the linear heads."""
+        super().__init__()
+        self.num_blocks = len(p.t_kernel)
+        prev, dims = in_features, list(video_shape)
+        for i in range(self.num_blocks):
+            f = min(p.max_expansion, p.block_expansion * (2 ** i))
+            kernel = (p.t_kernel[i], p.h_kernel[i], p.w_kernel[i])
+            stride = (p.t_stride[i], p.h_stride[i], p.w_stride[i])
+            pad = (p.t_padding[i], p.h_padding[i], p.w_padding[i])
+            self.add_module(f"down_{i}", DownBlock3d(
+                prev, f, kernel, stride, pad, padding_mode=p.padding_mode))
+            dims = [(d + 2 * q - k) // s + 1
+                    for d, k, s, q in zip(dims, kernel, stride, pad)]
+            prev = f
+        flat = prev * dims[0] * dims[1] * dims[2]
+        self.fc_mu = Dense(flat, output_channel)
+        self.fc_logvar = Dense(flat, output_channel)
+
+    def forward(self, video: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = video                                          # [B, T, H, W, C]
+        for i in range(self.num_blocks):
+            x = getattr(self, f"down_{i}")(x)
+        flat = x.reshape(x.shape[0], -1).float()
+        return {"mu": self.fc_mu(flat), "logvar": self.fc_logvar(flat)}
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """VAE reparameterization mu + eps·exp(logvar/2); ``eps`` is given or
+    drawn standard normal from ``generator`` (a CPU generator; the draw is
+    moved to mu's device, so a seed gives the same noise on any device)."""
+    if eps is None:
+        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype)
+    return mu + eps.to(mu.device) * torch.exp(0.5 * logvar)
 
 
 class SparseMotionFeatureEncoder(nn.Module):

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from c2m_tpu.config import GeneratorParams
+from c2m_tpu_torch.config import GeneratorParams
 from c2m_tpu_torch.nn.layers import (Conv, DownBlock2d, ResidualBlock,
                                      SameBlock2d, UpBlock2d)
 from c2m_tpu_torch.ops.warp import resample, resample_masked, resize_bilinear

@@ -1,25 +1,28 @@
-"""Sparse (per-object) motion estimator — the "click" GNN, eval mode.
+"""Sparse (per-object) motion estimator — the "click" GNN.
 
 Port of ``c2m_tpu/models/sparse_motion.py``: dense masked GATv2 over padded
 nodes, one affine head per predicted frame, clicked nodes clamped to GT.
-``sample_click_indices`` waits for the training port; at inference the click
-mask is an input.
+At inference the click mask is an input; the training forward draws it with
+:func:`sample_click_indices`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from c2m_tpu.config import SparseMotionEstimatorParams
-from c2m_tpu_torch.nn.layers import Dense, leaky
+from c2m_tpu_torch.config import SparseMotionEstimatorParams
+from c2m_tpu_torch.nn.layers import BN_MOMENTUM, Dense, leaky
 
 
 class MaskedBatchNorm1d(nn.Module):
-    """BatchNorm over valid nodes; eval mode uses the running statistics
-    (the JAX ``batch_stats`` mean/var)."""
+    """BatchNorm over valid nodes only. Train mode: masked mean and (biased)
+    variance over the valid nodes of the batch, the count floored at 1; the
+    running variance takes the UNBIASED estimate (var·n/(n−1), as torch's
+    BatchNorm1d does; unlike ``nn.layers.BatchNorm``), momentum 0.1. Eval
+    mode uses the running statistics."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -29,8 +32,20 @@ class MaskedBatchNorm1d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x [B, N, C]; mask [B, N]."""
+        if self.training:
+            m = mask[..., None].to(x.dtype)
+            count = m.sum().clamp_min(1.0)
+            mean = (x * m).sum(dim=(0, 1)) / count
+            var = ((x - mean).square() * m).sum(dim=(0, 1)) / count
+            with torch.no_grad():
+                unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                self.running_mean.lerp_(mean, BN_MOMENTUM)
+                self.running_var.lerp_(unbiased, BN_MOMENTUM)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
@@ -115,8 +130,8 @@ class SparseMotionEstimator(nn.Module):
         u = click_mask[..., None].to(x_nodes.dtype)
         xm = self.x_enc2(leaky(self.x_enc1(x_nodes)))
         z = self.scene_fc1(torch.cat([xm, scene_feat], dim=-1))
-        z = leaky(self.scene_bn1(z))
-        z = leaky(self.scene_bn2(self.scene_fc2(z)))
+        z = leaky(self.scene_bn1(z, node_mask))
+        z = leaky(self.scene_bn2(self.scene_fc2(z), node_mask))
         x = self.scene_fc3(z)
         adj = build_adjacency(node_mask)
         thetas = []
@@ -125,3 +140,20 @@ class SparseMotionEstimator(nn.Module):
             theta_t = getattr(self, f"loc_{t}")(x)
             thetas.append(theta_t * (1.0 - u) + targets_theta[:, :, t] * u)
         return {"thetas": torch.stack(thetas, dim=2)}
+
+
+def sample_click_indices(num_real_nodes: torch.Tensor, n_max: int,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One random real node per graph as the user's click: idx =
+    floor(U·n) clipped to n−1, U uniform from ``generator`` (a generator on
+    the CPU; the draw is moved to the nodes' device). Returns (indices [B],
+    click_mask [B, N] float32, zero rows for graphs without real nodes)."""
+    b = num_real_nodes.shape[0]
+    dev = num_real_nodes.device
+    uni = torch.rand(b, generator=generator).to(dev)
+    n = num_real_nodes.to(torch.float32)
+    idx = torch.floor(uni * n.clamp_min(1.0)).long()
+    idx = torch.minimum(idx, (num_real_nodes.long() - 1).clamp_min(0))
+    mask = torch.nn.functional.one_hot(idx, n_max).to(torch.float32)
+    return idx, mask * (num_real_nodes > 0)[:, None].to(torch.float32)

@@ -5,10 +5,17 @@ Every module takes and returns channels-last tensors (``[B, H, W, C]`` or
 input to PyTorch's NCHW view (a view, no copy) and runs
 ``torch.nn.functional.conv2d``/``conv3d`` (cuDNN on the card).
 
-Norms run in eval mode (running statistics): the port serves inference.
-Padding is explicit so that reflect padding can fall back to edge padding on
+Norms follow ``module.training``: batch statistics (and running-stat
+updates) in train mode, running statistics in eval mode. Padding is explicit so that reflect padding can fall back to edge padding on
 an axis too short to reflect, as in the JAX package (torch's ReflectionPad
 raises there).
+
+Parameters are float32. A conv or linear layer computes in its
+``compute_dtype`` when one is set (:func:`use_compute_dtype`): it casts its
+weight, bias and input at use, as flax's ``dtype=`` does, so the optimizer
+keeps float32 parameters while the conv stacks run in bfloat16. The serving
+path instead casts whole stacks once (``C2MGenerator.set_compute_dtype``);
+with no ``compute_dtype`` a layer computes in its weight's dtype.
 
 ``JAX_NAMES`` on a block maps its children to the names the same module has
 in the JAX variable tree (``utils/convert.py`` walks it).
@@ -56,6 +63,13 @@ def pad_spatial(x: torch.Tensor, pads: Sequence[Tuple[int, int]],
     return x
 
 
+def _operands(mod, x: torch.Tensor):
+    """Input, weight and bias in the layer's compute dtype."""
+    dt = mod.compute_dtype or mod.weight.dtype
+    bias = None if mod.bias is None else mod.bias.to(dt)
+    return x.to(dt), mod.weight.to(dt), bias
+
+
 class Conv(nn.Conv2d):
     """2D conv on NHWC with explicit reflect/replicate/zeros padding.
     Parameters: ``weight`` [F, C, kh, kw], ``bias`` [F] (torch default init,
@@ -68,11 +82,12 @@ class Conv(nn.Conv2d):
                          stride=_tuple(strides, 2), padding=0)
         self.pad = _tuple(padding, 2)
         self.pad_mode = padding_mode
+        self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = pad_spatial(x, [(p, p) for p in self.pad], self.pad_mode)
-        y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight,
-                     self.bias, self.stride)
+        x, weight, bias = _operands(self, x)
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, self.stride)
         return y.permute(0, 2, 3, 1)
 
 
@@ -87,24 +102,51 @@ class Conv3d(nn.Conv3d):
                          stride=_tuple(strides, 3), padding=0)
         self.pad = _tuple(padding, 3)
         self.pad_mode = padding_mode
+        self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = pad_spatial(x, [(p, p) for p in self.pad], self.pad_mode)
-        y = F.conv3d(x.to(self.weight.dtype).permute(0, 4, 1, 2, 3),
-                     self.weight, self.bias, self.stride)
+        x, weight, bias = _operands(self, x)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias, self.stride)
         return y.permute(0, 2, 3, 4, 1)
 
 
 class Dense(nn.Linear):
-    """Linear layer; casts its input to the weight's dtype."""
+    """Linear layer; casts its input to its compute dtype (the weight's
+    dtype unless ``compute_dtype`` is set)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        return F.linear(*_operands(self, x))
+
+
+def use_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every conv and linear layer under ``module`` computes in ``dtype``
+    from now on; parameters and buffers keep their own dtype."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Conv3d, Dense, SpectralNormConv)):
+            m.compute_dtype = dtype
+    return module
+
+
+# share of the batch statistic in a running statistic after one train-mode
+# forward (torch's convention; flax's momentum 0.9 is one minus this)
+BN_MOMENTUM = 0.1
 
 
 class BatchNorm(nn.Module):
-    """torch BatchNorm in eval mode over the last (channel) axis:
-    (x − running_mean)·rsqrt(running_var + 1e-5)·weight + bias."""
+    """BatchNorm over the last (channel) axis, statistics in float32:
+    (x − mean)·rsqrt(var + 1e-5)·weight + bias.
+
+    Eval mode uses the running statistics. Train mode uses the batch
+    statistics over all axes but the last, var = max(0, E[x²] − E[x]²) as
+    flax computes it, and moves the running statistics by momentum 0.1
+    (flax 0.9). As in the JAX package (flax), ``running_var`` takes the
+    BIASED batch variance; ``torch.nn.BatchNorm`` would store the unbiased
+    one."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -115,8 +157,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                        BN_MOMENTUM)
+                self.running_var.lerp_(var.to(self.running_var.dtype),
+                                       BN_MOMENTUM)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean) * mul + self.bias.float()
         return y.to(x.dtype)
 
 
@@ -260,6 +314,45 @@ class ResidualBlock(nn.Module):
         out = self.conv1(F.relu(self.norm1(x)))
         out = self.conv2(F.relu(self.norm2(out)))
         return out + x
+
+
+class SpectralNormConv(nn.Module):
+    """Conv (no padding, stride 1) with torch-style spectral normalisation
+    (port of ``c2m_tpu/nn/layers.py`` SpectralNormConv): the weight is
+    divided by sigma = u·(W v), W the weight as an [out, in·kh·kw] matrix.
+    Train mode runs one power iteration per forward (v = W'u/|W'u|,
+    u = Wv/|Wv|, eps 1e-12) and stores the new ``u`` in its buffer, in
+    place and without gradient; eval mode recomputes ``v`` from the stored
+    ``u``. ``u`` and ``v`` are constants to autograd."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 1):
+        super().__init__()
+        k = _tuple(kernel_size, 2)
+        self.weight = nn.Parameter(torch.empty(features, in_features, *k))
+        self.bias = nn.Parameter(torch.empty(features))
+        bound = 1.0 / float(in_features * k[0] * k[1]) ** 0.5
+        nn.init.uniform_(self.weight, -bound, bound)
+        nn.init.uniform_(self.bias, -bound, bound)
+        self.register_buffer("u", torch.randn(features))
+        self.compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def normalize(v):
+            return v / (torch.linalg.vector_norm(v) + 1e-12)
+
+        w_mat = self.weight.flatten(1)                       # [out, in*kh*kw]
+        with torch.no_grad():
+            u = self.u.float()
+            v = normalize(w_mat.t() @ u)
+            if self.training:
+                # a new tensor: an earlier forward's graph still holds the
+                # u it used, so the buffer is only copied into
+                u = normalize(w_mat @ v)
+                self.u.copy_(u)
+        sigma = torch.dot(u, w_mat @ v)
+        dt = self.compute_dtype or self.weight.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), (self.weight / sigma).to(dt))
+        return y.permute(0, 2, 3, 1) + self.bias.to(y.dtype)
 
 
 def fold_time(x: torch.Tensor) -> Tuple[torch.Tensor, int]:

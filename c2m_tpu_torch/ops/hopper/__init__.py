@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written Hopper kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled at first use by nvcc into ONE shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), named after a hash of the sources so that an edit rebuilds it,
-and loaded with ctypes. Each C entry point launches on the stream it is
+Every ``csrc/*.cu`` file is compiled at first use by nvcc (one nvcc process
+per source, all started together) and linked into ONE shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), named
+after a hash of the sources so that an edit rebuilds it, and loaded with
+ctypes. Each C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``; :func:`check` raises on non-zero.
 
 The build directory defaults to ``c2m_tpu_torch/_build`` inside the
@@ -34,7 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # no fused multiply-add contraction: keeps each kernel's
               # float rounding op-for-op equal to its plain version, so the
               # {0,1} thresholds (covered >= 1-eps, mass > 0.5) flip only
@@ -51,6 +52,12 @@ _SIGNATURES = {
     # img, flow, mask, out, B, H, W, C, masked, stream
     "c2m_resample_f32": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
     "c2m_resample_bf16": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+    # grad_out, img, flow, mask, grad_img, grad_flow, grad_mask, B, H, W, C,
+    # masked, need_img, need_flow, need_mask, stream
+    "c2m_resample_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                             _I, _I, _I, _I, _P],
+    "c2m_resample_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                              _I, _I, _I, _I, _P],
     # instance, inst_ids, valid, thetas, winner, B, N, T, H, W, thr, stream
     "c2m_warp_masks_winner": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _F, _P],
     # coords, out, B, H, W, stream
@@ -64,7 +71,7 @@ class Kernel:
     and how many times it was launched (its wrapper adds one per launch)."""
     name: str
     source: str        # path in the repo
-    replaces: str      # file:line of the Pallas kernel
+    replaces: str      # file:line of the TPU kernel (or what stands for it)
     launches: int = 0
 
 
@@ -112,14 +119,24 @@ def build() -> str:
         return out
     os.makedirs(build_dir(), exist_ok=True)
     cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(cu, objs)]
+        results = [(p.communicate(), p.returncode) for p in procs]
+        for src, ((_, err), rc) in zip(cu, results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n{err}")
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(lib, out)
     return out
 
 

@@ -1,11 +1,18 @@
-"""Kernel K1: bilinear resample (+ fused ×mask), forward only.
+"""Kernel K1: bilinear resample (+ fused ×mask), forward and backward.
 
 Replaces the Pallas kernel ``_resample_pallas`` / ``_warp_kernel`` in
-``c2m_tpu/ops/pallas/warp_kernels.py``. CUDA source: ``csrc/resample.cu``.
+``c2m_tpu/ops/pallas/warp_kernels.py``. CUDA sources: ``csrc/resample.cu``
+(forward) and ``csrc/resample_bwd.cu`` (the gradients with respect to the
+image, the flow and the mask; the JAX package differentiates its jnp path
+with ``jax.grad`` and has no backward kernel).
 
-A CPU tensor takes :func:`resample_plain`; a CUDA tensor launches the kernel
-or raises. One compiled kernel per image dtype (float32, bfloat16), each with
-its own launch count.
+A CPU tensor takes :func:`resample_plain`, forward and (through autograd)
+backward; a CUDA tensor goes through a ``torch.autograd.Function`` whose
+forward and backward launch the kernels or raise. One compiled kernel per
+image dtype (float32, bfloat16) and direction, each with its own launch
+count. The image gradient is a scatter of float atomics, summed in an order
+that changes from run to run: it agrees with autograd of the plain version
+to float32 summation error, not bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +29,13 @@ RESAMPLE_F32 = hopper.Kernel(
 RESAMPLE_BF16 = hopper.Kernel(
     "resample_bf16", "c2m_tpu_torch/csrc/resample.cu",
     "c2m_tpu/ops/pallas/warp_kernels.py:130")
-KERNELS = (RESAMPLE_F32, RESAMPLE_BF16)
+_BWD_OF = ("backward of c2m_tpu/ops/warp.py:195 under jax.grad "
+           "(no Pallas counterpart)")
+RESAMPLE_BWD_F32 = hopper.Kernel(
+    "resample_bwd_f32", "c2m_tpu_torch/csrc/resample_bwd.cu", _BWD_OF)
+RESAMPLE_BWD_BF16 = hopper.Kernel(
+    "resample_bwd_bf16", "c2m_tpu_torch/csrc/resample_bwd.cu", _BWD_OF)
+KERNELS = (RESAMPLE_F32, RESAMPLE_BF16, RESAMPLE_BWD_F32, RESAMPLE_BWD_BF16)
 
 
 def resample_plain(image: torch.Tensor, flow: torch.Tensor,
@@ -44,7 +57,7 @@ def resample_plain(image: torch.Tensor, flow: torch.Tensor,
     return out.to(image.dtype)
 
 
-def _launch(image, flow, mask):
+def _check_inputs(image, flow, mask):
     req = hopper.require
     req(image.dim() == 4, f"image must be [B,H,W,C], got {tuple(image.shape)}")
     b, h, w, c = image.shape
@@ -62,6 +75,11 @@ def _launch(image, flow, mask):
     for t in tensors:
         req(t.device == image.device, "all inputs must be on one device")
         req(t.is_contiguous(), "inputs must be contiguous")
+    return b, h, w, c
+
+
+def _launch(image, flow, mask):
+    b, h, w, c = _check_inputs(image, flow, mask)
     out = torch.empty_like(image)
     if out.numel() == 0:
         return out
@@ -77,12 +95,66 @@ def _launch(image, flow, mask):
     return out
 
 
+def _launch_backward(grad_out, image, flow, mask, need_image, need_flow,
+                     need_mask):
+    """The gradients that were asked for (None for the others). The image
+    gradient is accumulated in a zeroed float32 buffer and cast once to the
+    image dtype."""
+    b, h, w, c = _check_inputs(image, flow, mask)
+    hopper.require(grad_out.shape == image.shape
+                   and grad_out.dtype == image.dtype
+                   and grad_out.device == image.device,
+                   "grad_out must match the image in shape, dtype and device")
+    grad_out = grad_out.contiguous()
+    need_mask = need_mask and mask is not None
+    dev = image.device
+    g_image = (torch.zeros(image.shape, dtype=torch.float32, device=dev)
+               if need_image else None)
+    g_flow = torch.zeros_like(flow) if need_flow else None
+    g_mask = torch.zeros_like(mask) if need_mask else None
+    if image.numel() and (need_image or need_flow or need_mask):
+        kernel, fn = ((RESAMPLE_BWD_F32, "c2m_resample_bwd_f32")
+                      if image.dtype == torch.float32
+                      else (RESAMPLE_BWD_BF16, "c2m_resample_bwd_bf16"))
+
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        err = getattr(hopper.library(), fn)(
+            grad_out.data_ptr(), image.data_ptr(), flow.data_ptr(), ptr(mask),
+            ptr(g_image), ptr(g_flow), ptr(g_mask), b, h, w, c,
+            int(mask is not None), int(need_image), int(need_flow),
+            int(need_mask), hopper.stream_ptr(image))
+        hopper.check(err, fn)
+        kernel.launches += 1
+    if g_image is not None:
+        g_image = g_image.to(image.dtype)
+    return g_image, g_flow, g_mask
+
+
+class _ResampleCuda(torch.autograd.Function):
+    """K1 on the card: forward and backward are the hand-written kernels.
+    Saves image, flow and mask (not the taps)."""
+
+    @staticmethod
+    def forward(ctx, image, flow, mask):
+        ctx.save_for_backward(image, flow, mask)
+        return _launch(image, flow, mask)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        image, flow, mask = ctx.saved_tensors
+        return _launch_backward(grad_out, image, flow, mask,
+                                *ctx.needs_input_grad)
+
+
 def _dispatch(image, flow, mask):
     if image.device.type == "cpu":
         return resample_plain(image, flow, mask)
     if image.device.type != "cuda":
         raise ValueError(f"resample: no kernel for device {image.device}")
-    return _launch(image, flow, mask)
+    return _ResampleCuda.apply(image, flow, mask)
 
 
 def resample(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ A model comes from a config plus JAX variables (nested, or the
 '/'-flattened layout of an artifact's ``variables.npz``), from an artifact
 directory (``variables.npz`` + ``meta.json`` + ``config.yaml``; the
 ``.stablehlo`` files are the JAX server's and are ignored), or as a built
-``C2MGenerator``. Conv stacks run in ``train_params.dtype``.
+``C2MGenerator``. Conv stacks run in ``train_params.dtype``. ``device=None``
+means the card, and an error where there is none; ``"cpu"`` must be asked
+for.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from c2m_tpu_torch.device import resolve_device
 from c2m_tpu_torch.models.c2m import DTYPES, C2MGenerator
 from c2m_tpu_torch.utils.convert import from_jax_variables
 
@@ -54,19 +57,22 @@ class ServingModel:
 
     @classmethod
     def from_variables(cls, cfg, variables: Mapping,
-                       batch_sizes: Sequence[int] = (1,), device="cpu",
+                       batch_sizes: Sequence[int] = (1,), device=None,
                        use_gt_eval: Optional[bool] = None) -> "ServingModel":
-        """C2MGenerator(cfg) with the JAX ``variables``, in eval mode on
-        ``device``, conv stacks in ``train_params.dtype``."""
+        """C2MGenerator(cfg) with the JAX ``variables`` (a ``C2MGenerator``
+        tree), in eval mode on ``device`` (None: the card), conv stacks in
+        ``train_params.dtype``."""
+        device = resolve_device(device)
         model = C2MGenerator(cfg)
         model.load_state_dict(from_jax_variables(variables, cfg))
         model.to(device).set_compute_dtype(DTYPES[cfg.train_params.dtype])
         return cls(model, batch_sizes, use_gt_eval)
 
     @classmethod
-    def from_artifact(cls, artifact_dir: str, device="cpu",
+    def from_artifact(cls, artifact_dir: str, device=None,
                       use_gt_eval: Optional[bool] = None) -> "ServingModel":
         from c2m_tpu_torch.config import load_config
+        device = resolve_device(device)
         with open(os.path.join(artifact_dir, "meta.json")) as f:
             meta = json.load(f)
         if meta["format_version"] != _FORMAT_VERSION:

@@ -15,12 +15,11 @@ import torch
 
 from c2m_tpu.models.c2m import C2MGenerator as JaxC2M
 from c2m_tpu.nn import layers as jl
-from c2m_tpu_torch.data.synthetic import make_batch
 from c2m_tpu_torch.nn import layers as tl
 from c2m_tpu_torch.utils.convert import module_state_from_jax
-from tests.torch_port_fixtures import (port_model, random_jax_variables,
-                                       random_leaves, tiny_cfg, to_jax,
-                                       to_torch)
+from tests.torch_port_fixtures import (make_batch, port_model,
+                                       random_jax_variables, random_leaves,
+                                       tiny_cfg, to_jax, to_torch)
 
 ATOL = 1e-4
 # relative part: the encoder input carries raw instance ids (~1e4) into the

@@ -25,9 +25,8 @@ import yaml
 
 from c2m_tpu import serving as jserving
 from c2m_tpu.models.c2m import C2MGenerator as JaxC2M
-from c2m_tpu_torch.data.synthetic import make_batch
 from c2m_tpu_torch.serving import ServingModel, z_dim
-from tests.torch_port_fixtures import (port_model, random_jax_variables,
+from tests.torch_port_fixtures import (make_batch, port_cfg, port_model, random_jax_variables,
                                        tiny_cfg, to_jax, to_torch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,7 +73,8 @@ def test_inference_matches_jax(setup, use_gt_eval):
 @pytest.fixture(scope="module")
 def served(setup):
     cfg, _, variables, _, _ = setup
-    return ServingModel.from_variables(cfg, variables, batch_sizes=(1, 3))
+    return ServingModel.from_variables(port_cfg(cfg), variables,
+                                       batch_sizes=(1, 3), device="cpu")
 
 
 def test_serving_padding_matches_unpadded(setup, served):
@@ -114,7 +114,7 @@ def test_serving_from_artifact(setup, served, tmp_path):
         yaml.safe_dump(cfg.to_dict(), f)
     with open(tmp_path / "meta.json", "w") as f:
         json.dump({"format_version": 1, "batch_sizes": [2]}, f)
-    loaded = ServingModel.from_artifact(str(tmp_path))
+    loaded = ServingModel.from_artifact(str(tmp_path), device="cpu")
     assert loaded.batch_sizes == [2]
     np.testing.assert_array_equal(loaded(batch, z, click)["generated"],
                                   served(batch, z, click)["generated"])
@@ -124,12 +124,12 @@ _BLOCKED_JAX = """
 import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "c2m_tpu"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import numpy as np, torch
 import chip_smoke
-from c2m_tpu.config import Config, shrink_model
+from c2m_tpu_torch.config import Config, shrink_model
 from c2m_tpu_torch.data.synthetic import make_batch
 from c2m_tpu_torch.models.c2m import C2MGenerator
 from c2m_tpu_torch.serving import ServingModel, z_dim
@@ -138,10 +138,11 @@ cfg.train_params.input_size = cfg.test_params.input_size = [64, 128]
 cfg.dataset_params.max_objects = 3
 cfg.train_params.dtype = "float32"
 served = ServingModel(C2MGenerator(cfg), (1,))
-out = served(make_batch(cfg, batch_size=1, seed=0), np.zeros((1, z_dim(cfg))),
-             np.zeros((1, 3)))
+out = served(make_batch(cfg, batch_size=1, seed=0, device="cpu"),
+             np.zeros((1, z_dim(cfg))), np.zeros((1, 3)))
 assert np.isfinite(out["generated"]).all()
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "flax", "optax", "c2m_tpu")]
 print("ok")
 """
 

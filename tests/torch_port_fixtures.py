@@ -3,7 +3,9 @@
 Both packages get the same inputs and weights, made from a seed with numpy:
 the JAX variable tree's structure comes from ``jax.eval_shape`` of
 ``C2MGenerator.init`` (no compile), its leaves are drawn with numpy and the
-port takes them through ``c2m_tpu_torch.utils.convert``.
+port takes them through ``c2m_tpu_torch.utils.convert``. Each package gets
+its own config object: ``tiny_cfg`` makes the JAX package's, ``port_cfg``
+carries it into the port's dataclasses. The port runs on the CPU here.
 """
 
 import numpy as np
@@ -13,6 +15,8 @@ import torch
 
 from c2m_tpu.config import shrink_model, tiny_config
 from c2m_tpu.serving import unflatten_tree
+from c2m_tpu_torch import config as port_config
+from c2m_tpu_torch.data import synthetic as port_synthetic
 
 
 def tiny_cfg(max_objects: int = 4, batch_size: int = 2):
@@ -22,6 +26,17 @@ def tiny_cfg(max_objects: int = 4, batch_size: int = 2):
                                    batch_size=batch_size))
     cfg.train_params.dtype = "float32"
     return cfg
+
+
+def port_cfg(cfg):
+    """The port's Config with the values of a ``c2m_tpu.config.Config``."""
+    return port_config.check(port_config._update_dataclass(
+        port_config.Config(), cfg.to_dict()))
+
+
+def make_batch(cfg, **kwargs):
+    """The port's synthetic batch for a JAX-package config, on the CPU."""
+    return port_synthetic.make_batch(port_cfg(cfg), device="cpu", **kwargs)
 
 
 def random_jax_variables(cfg, batch, seed: int = 0):
@@ -71,8 +86,8 @@ def port_model(cfg, variables):
     """The port's C2MGenerator carrying the same weights, eval mode, CPU."""
     from c2m_tpu_torch.models.c2m import C2MGenerator
     from c2m_tpu_torch.utils.convert import from_jax_variables
-    model = C2MGenerator(cfg)
-    model.load_state_dict(from_jax_variables(variables, cfg))
+    model = C2MGenerator(port_cfg(cfg))
+    model.load_state_dict(from_jax_variables(variables, port_cfg(cfg)))
     return model.eval()
 
 
