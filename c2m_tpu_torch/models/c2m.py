@@ -128,21 +128,12 @@ class C2MGenerator(nn.Module):
                                         padding_mode="reflect")
         self.generator = OcclusionAwareGenerator(mp.generator)
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "C2MGenerator":
-        """For serving: cast the conv stacks themselves to ``dtype``
-        (train_params.dtype); the GNN, ``fc`` and the rasterizer stay
-        float32."""
-        for name in CONV_STACKS:
-            if hasattr(self, name):
-                getattr(self, name).to(dtype)
-        return self
-
     def use_compute_dtype(self, dtype: torch.dtype) -> "C2MGenerator":
-        """For training: the conv stacks and the VAE encoders compute in
-        ``dtype`` while every parameter stays float32 (each layer casts its
-        weight and input at use). The GNN, ``fc``, the VAE heads
-        ``fc_mu``/``fc_logvar``, the norms' statistics and the rasterizer
-        stay float32."""
+        """For training and serving alike: the conv stacks and the VAE
+        encoders compute in ``dtype`` while every parameter stays float32
+        (each layer casts its weight and input at use). The GNN, ``fc``, the
+        VAE heads ``fc_mu``/``fc_logvar``, the norms' statistics and the
+        rasterizer stay float32."""
         for name in CONV_STACKS + VAE_ENCODERS:
             if hasattr(self, name):
                 use_compute_dtype(getattr(self, name), dtype)

@@ -13,9 +13,9 @@ raises there).
 Parameters are float32. A conv or linear layer computes in its
 ``compute_dtype`` when one is set (:func:`use_compute_dtype`): it casts its
 weight, bias and input at use, as flax's ``dtype=`` does, so the optimizer
-keeps float32 parameters while the conv stacks run in bfloat16. The serving
-path instead casts whole stacks once (``C2MGenerator.set_compute_dtype``);
-with no ``compute_dtype`` a layer computes in its weight's dtype.
+keeps float32 parameters while the conv stacks run in bfloat16; serving
+takes the same route. With no ``compute_dtype`` a layer computes in its
+weight's dtype.
 
 ``JAX_NAMES`` on a block maps its children to the names the same module has
 in the JAX variable tree (``utils/convert.py`` walks it).

@@ -60,8 +60,15 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P],
     # instance, inst_ids, valid, thetas, winner, B, N, T, H, W, thr, stream
     "c2m_warp_masks_winner": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _F, _P],
+    # instance, inst_ids, valid, thetas, boxes, winner, B, N, T, H, W, thr,
+    # stream
+    "c2m_warp_masks_banded": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _F,
+                              _P],
     # coords, out, B, H, W, stream
     "c2m_splat": [_P, _P, _L, _L, _L, _P],
+    # a, b, out, B, H, W, C, max_displacement, stride, stream
+    "c2m_correlation_f32": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
+    "c2m_correlation_bf16": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
 }
 
 

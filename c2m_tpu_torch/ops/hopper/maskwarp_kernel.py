@@ -54,7 +54,10 @@ def warp_masks_winner_plain(instance: torch.Tensor, inst_ids: torch.Tensor,
     return winner
 
 
-def _launch(instance, inst_ids, valid, thetas):
+def check_and_allocate(instance, inst_ids, valid, thetas):
+    """Check the arguments shared by K2 and K3 (raises on what the kernels
+    do not take) and return (ids as float32, valid as int32, the empty
+    winner [B, T, H, W] int32)."""
     req = hopper.require
     req(instance.dim() == 3 and instance.dtype == torch.float32,
         f"instance must be float32 [B,H,W], got {instance.dtype} "
@@ -74,14 +77,21 @@ def _launch(instance, inst_ids, valid, thetas):
     ids = inst_ids.to(torch.float32).contiguous()
     valid_i = valid.to(torch.int32).contiguous()
     winner = torch.empty(b, t, h, w, dtype=torch.int32, device=instance.device)
+    return ids, valid_i, winner
+
+
+def _launch(instance, inst_ids, valid, thetas):
+    ids, valid_i, winner = check_and_allocate(instance, inst_ids, valid,
+                                              thetas)
     if winner.numel() == 0:
         return winner
+    b, t, h, w = winner.shape
     err = hopper.library().c2m_warp_masks_winner(
         instance.data_ptr(), ids.data_ptr(), valid_i.data_ptr(),
         # the threshold as the plain version's comparison rounds it: the
         # double 1 - eps to the nearest float32
-        thetas.data_ptr(), winner.data_ptr(), b, n, t, h, w, 1.0 - INTERIOR_EPS,
-        hopper.stream_ptr(instance))
+        thetas.data_ptr(), winner.data_ptr(), b, thetas.shape[1], t, h, w,
+        1.0 - INTERIOR_EPS, hopper.stream_ptr(instance))
     hopper.check(err, "c2m_warp_masks_winner")
     WARP_MASKS_WINNER.launches += 1
     return winner

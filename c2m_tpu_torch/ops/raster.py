@@ -1,11 +1,13 @@
 """Sparse-motion rasterization over padded object nodes (gather form).
 
 Port of ``c2m_tpu/ops/raster.py``. One gather-form path serves both GT and
-GNN thetas on the GPU: kernel K2 warps every object mask by its affine and
+GNN thetas on the GPU: a kernel warps every object mask by its affine and
 composes the winner map (last covered node wins, as the reference's
-overwrite order), ``torch.gather`` picks the winning theta per pixel and
-its affine flow is evaluated pointwise, and the occlusion maps are forward
-splats (kernel K4) of the other direction's flow. The separable and scan
+overwrite order): K2 up to the map size at which the JAX package leaves its
+quadratic kernel, the windowed K3 above it (:func:`banded`). ``torch.gather``
+picks the winning theta per pixel and its affine flow is evaluated
+pointwise, and the occlusion maps are forward splats (kernel K4) of the
+other direction's flow. The separable and scan
 variants of the JAX package were TPU rewrites of the same math and are not
 ported.
 
@@ -19,8 +21,20 @@ from typing import Dict
 import torch
 
 from c2m_tpu_torch.ops import splat
-from c2m_tpu_torch.ops.hopper import maskwarp_kernel
+from c2m_tpu_torch.ops.hopper import maskwarp_banded, maskwarp_kernel
 from c2m_tpu_torch.ops.warp import pointwise_affine_flow
+
+
+# b·n·t·(h·w)² above which the mask warp leaves K2 for K3: the JAX package's
+# own gate (c2m_tpu/ops/raster.py:288-289). Every 128x256 path stays below
+# it (1.03e12 at batch 12, 16 nodes, 5 frames); one 512x1024 clip of 24 nodes
+# and 10 frames is at 6.6e13.
+BANDED_ABOVE = 2e12
+
+
+def banded(b: int, n: int, t: int, h: int, w: int) -> bool:
+    """Whether a mask warp of this shape takes K3 (else K2)."""
+    return b * n * t * (h * w) ** 2 > BANDED_ABOVE
 
 
 def _winning_theta(thetas_btn: torch.Tensor, winner: torch.Tensor
@@ -50,7 +64,9 @@ def generate_sparse_motion(instance: torch.Tensor, inst_ids: torch.Tensor,
     node_mask = node_mask.bool()
     valid = node_mask & (inst_ids != 0)
 
-    winner_bw = maskwarp_kernel.warp_masks_winner(
+    warp = (maskwarp_banded.warp_masks_winner_banded if banded(b, n, t, h, w)
+            else maskwarp_kernel.warp_masks_winner)
+    winner_bw = warp(
         instance[..., 0].contiguous(), inst_ids.contiguous(),
         valid.contiguous(), thetas)                              # [B, T, H, W]
     theta_btn = thetas.permute(0, 2, 1, 3).contiguous()          # [B, T, N, 6]

@@ -3,10 +3,11 @@
 Port of ``c2m_tpu/ops/warp.py``. Layout is channels-last, as there:
 images ``[B, H, W, C]``, flows ``[B, H, W, 2]`` with ``(fx, fy)`` in pixels.
 
-Three sampling conventions stay as the reference has them (they are
+Four sampling conventions stay as the reference has them (they are
 load-bearing parity, not accidents):
 - ``resample``: sx = (x + fx)·W/(W−1) − 0.5, border clamp (the hand-written
   kernel K1 behind ``ops/hopper/warp_kernels.py``);
+- ``resample_pixel``: sx = x + fx, border clamp (FlowNet2's resample2d);
 - ``affine_grid`` + ``grid_sample_normalized``: align_corners=False with
   zeros padding (the mask warp, kernel K2);
 - ``affine_flow``: the affine grid minus an align_corners=True base.
@@ -80,6 +81,18 @@ def bilinear_sample(image: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     top = v00 * (1.0 - wx) + v10 * wx
     bot = v01 * (1.0 - wx) + v11 * wx
     return (top * (1.0 - wy) + bot * wy).reshape(*lead, c)
+
+
+def resample_pixel(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Pixel-space backward warp (FlowNet2's resample2d): source coords are
+    plainly (x + fx, y + fy), clamped to the border. Another convention than
+    ``resample`` (kernel K1), and plain PyTorch as it is plain jnp in the
+    JAX package. image [B, H, W, C]; flow [B, H, W, 2] pixels."""
+    _, h, w, _ = image.shape
+    xs = torch.arange(w, dtype=flow.dtype, device=flow.device)
+    ys = torch.arange(h, dtype=flow.dtype, device=flow.device)
+    return bilinear_sample(image, xs[None, :] + flow[..., 0],
+                           ys[:, None] + flow[..., 1], padding="border")
 
 
 def affine_grid(theta: torch.Tensor, h: int, w: int) -> torch.Tensor:

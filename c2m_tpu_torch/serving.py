@@ -30,6 +30,14 @@ from c2m_tpu_torch.utils.convert import from_jax_variables
 
 _FORMAT_VERSION = 1
 
+# what ``C2MGenerator.inference`` reads of a request: the per-frame streams
+# up to the last input frame, and the node arrays. The target frames, flows
+# and occlusions of a request are never uploaded (0.6 GB per 512x1024 clip
+# of 11 frames against 50 MB).
+_FRAME_STREAMS = ("video", "bg_mask", "fg_mask", "instance_mask")
+_TARGET_STREAMS = ("target_bw_of", "target_bw_occ", "target_fw_of",
+                   "target_fw_occ")
+
 
 def load_variables(path: str) -> Dict[str, np.ndarray]:
     """A serving artifact's ``variables.npz`` -> flat {'a/b/c': array}
@@ -65,7 +73,7 @@ class ServingModel:
         device = resolve_device(device)
         model = C2MGenerator(cfg)
         model.load_state_dict(from_jax_variables(variables, cfg))
-        model.to(device).set_compute_dtype(DTYPES[cfg.train_params.dtype])
+        model.to(device).use_compute_dtype(DTYPES[cfg.train_params.dtype])
         return cls(model, batch_sizes, use_gt_eval)
 
     @classmethod
@@ -108,7 +116,10 @@ class ServingModel:
         call compatibility with the JAX server; inference draws nothing."""
         bs = int(np.shape(next(iter(batch.values())))[0])
         bucket = self.bucket_for(bs)
-        arrays = {k: v for k, v in batch.items() if k != "names"}
+        nif = self.cfg.train_params.num_input_frames
+        arrays = {k: (np.asarray(v)[:, :nif] if k in _FRAME_STREAMS else v)
+                  for k, v in batch.items()
+                  if k != "names" and k not in _TARGET_STREAMS}
         arrays["__z"] = np.asarray(z_m, np.float32)
         arrays["__click"] = np.asarray(click, np.float32)
         arrays = self._pad_to(arrays, bucket, bs)

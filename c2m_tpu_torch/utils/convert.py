@@ -12,6 +12,8 @@ Layouts:
 - Conv: JAX ``[kh, kw, C, F]`` <-> torch ``[F, C, kh, kw]``;
 - Conv3d: JAX folds the kt time taps kt-major into the input channels,
   ``[kh, kw, kt·C, F]`` <-> torch ``[F, C, kt, kh, kw]``;
+- ConvTranspose (FlowNet2's deconvs, flax ``transpose_kernel=True``): JAX
+  ``[kh, kw, out, in]`` <-> torch ``[in, out, kh, kw]``, taps unflipped;
 - Dense: ``[in, out]`` <-> ``[out, in]``;
 - BatchNorm: scale/bias + batch_stats mean/var <-> weight/bias +
   running_mean/running_var;
@@ -26,7 +28,8 @@ unpermuted.
 From JAX, every JAX leaf is consumed exactly once and every port tensor is
 filled, or the conversion raises. :func:`to_jax_variables` is the way back:
 it carries a port state_dict (for instance after an optimizer step) into
-the JAX layout.
+the JAX layout. :func:`flownet2_from_jax` / :func:`flownet2_to_jax` are the
+same bridge for the FlowNet2 parameter tree.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from c2m_tpu_torch.models.flownet2 import Deconv, FlowNet2
 from c2m_tpu_torch.models.sparse_motion import MaskedBatchNorm1d
 from c2m_tpu_torch.nn.layers import (BatchNorm, Conv, Conv3d, Dense,
                                      InstanceNorm, SpectralNormConv)
@@ -104,6 +108,12 @@ def _entries(mod: nn.Module) -> Iterator[Entry]:
         yield ("weight", "params", below("Conv_0") + ("kernel",),
                lambda k: k.permute(3, 2, 0, 1), lambda w: w.permute(2, 3, 1, 0))
         yield "bias", "params", below("Conv_0") + ("bias",), _same, _same
+    elif isinstance(mod, Deconv):
+        # the same axis map as a conv's, read on [kh, kw, out, in]
+        yield ("weight", "params", ("ConvTranspose_0", "kernel"),
+               lambda k: k.permute(3, 2, 0, 1), lambda w: w.permute(2, 3, 1, 0))
+        if mod.bias is not None:
+            yield "bias", "params", ("ConvTranspose_0", "bias"), _same, _same
     elif isinstance(mod, SpectralNormConv):
         yield ("weight", "params", ("kernel",),
                lambda k: k.permute(3, 2, 0, 1), lambda w: w.permute(2, 3, 1, 0))
@@ -126,8 +136,8 @@ def _entries(mod: nn.Module) -> Iterator[Entry]:
         raise TypeError(f"no JAX layout known for {type(mod).__name__}")
 
 
-_LEAVES = (Conv, Conv3d, Dense, BatchNorm, MaskedBatchNorm1d, InstanceNorm,
-           SpectralNormConv)
+_LEAVES = (Conv, Conv3d, Deconv, Dense, BatchNorm, MaskedBatchNorm1d,
+           InstanceNorm, SpectralNormConv)
 
 
 def _walk(mod: nn.Module, port: str = "", jax: Tuple[str, ...] = ()
@@ -142,7 +152,9 @@ def _walk(mod: nn.Module, port: str = "", jax: Tuple[str, ...] = ()
         yield port + name, "/".join(("params",) + jax + (name,)), _same, _same
     names = getattr(mod, "JAX_NAMES", {})
     for name, child in mod.named_children():
-        yield from _walk(child, f"{port}{name}.", jax + (names.get(name, name),))
+        jax_name = names.get(name, name)       # None: no level in the JAX tree
+        yield from _walk(child, f"{port}{name}.",
+                         jax if jax_name is None else jax + (jax_name,))
 
 
 def _skeleton(cfg, train: bool) -> nn.Module:
@@ -223,3 +235,27 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor], cfg) -> Dict:
     arrays, float32."""
     train = any(k.startswith("c2m.") for k in state_dict)
     return module_state_to_jax(_skeleton(cfg, train), state_dict)
+
+
+def _flownet2_skeleton() -> nn.Module:
+    with torch.device("meta"):
+        return FlowNet2()
+
+
+def flownet2_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX FlowNet2 ``params`` tree (nested or '/'-flat, numpy) -> the
+    port's ``FlowNet2().state_dict()``, whose keys are the reference torch
+    checkpoint's. Every JAX leaf is consumed once and every port tensor is
+    filled, or this raises."""
+    flat = flatten({"params": params})
+    sd, used = _state_from_jax(_flownet2_skeleton(), flat)
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"JAX leaves not consumed: {left[:8]}")
+    return sd
+
+
+def flownet2_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The way back: a FlowNet2 ``state_dict`` -> the nested JAX ``params``
+    tree of numpy arrays, float32."""
+    return module_state_to_jax(_flownet2_skeleton(), state_dict)["params"]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two main paths once on one NVIDIA GPU: serving
-and the train step.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU: serving and
+the train step at the journal config (128x256) and at the long-horizon
+config (512x1024), and FlowNet2 on-the-fly flow feeding a train step.
 
     python3 chip_smoke.py [--profile]
 
@@ -8,17 +9,23 @@ Phases (any failure raises and the script exits non-zero):
   1. torch / CUDA versions and the card's name and power limit;
   2. build the hand-written kernels from c2m_tpu_torch/csrc (nvcc, ctypes);
   3. each kernel against its plain PyTorch version on the card at the
-     shapes the two paths give it (serving: B=12, T=5, N=16, 128x256; train:
-     15 folded frames), forward and, for K1, backward against autograd of
-     the plain version, with median times (CUDA events, after warm-up), the
-     least time the card could take (bound) and, where one PyTorch call
-     computes the same function (F.grid_sample for K1), that call's time;
+     shapes the paths give it (journal serving: B=12, T=5, N=16, 128x256;
+     journal train: 15 folded frames; long horizon: B=4 and B=1, T=10, N=24,
+     512x1024, with every decoder skip of K1 at 10 and 40 folded frames;
+     FlowNetC's map [30,16,32,256] and the 30 frame pairs of K4's
+     confidence), forward and, for K1, backward
+     against autograd of the plain version, with median times (CUDA events,
+     after warm-up), the least time the card could take (bound) and, where
+     one PyTorch call computes the same function (F.grid_sample for K1),
+     that call's time. K3 is also held against K2 on the same inputs, for
+     GT-like, GNN-like and window-overflowing thetas, and each of the two
+     is timed at the other's shapes as well;
   4. a ServingModel at the journal config's full width
-     (configs/c2m_journal_cityscapes.yaml, bfloat16 conv stacks, batch
-     bucket 12), random weights from a seeded torch.Generator, answering
-     three requests: batch 12 with GT thetas, batch 5 padded into the
-     bucket, batch 12 on the click path (GNN thetas). Every forward
-     kernel's launch count over these requests must be > 0;
+     (configs/c2m_journal_cityscapes.yaml, bfloat16 compute, batch bucket
+     12), random weights from a seeded torch.Generator, answering three
+     requests: batch 12 with GT thetas, batch 5 padded into the bucket,
+     batch 12 on the click path (GNN thetas). Every forward kernel of the
+     128x256 path must be launched, and no other;
   5. the same slice in float32 at batch 2: the card (kernels) against the
      CPU (plain versions), TF32 off;
   6. the train step at the journal config, nothing cut: batch 3, bfloat16
@@ -27,12 +34,27 @@ Phases (any failure raises and the script exits non-zero):
      steps through make_train_step. Every metric finite, the generator
      objective of one batch moves between the weights before and after,
      every optimizer group moves and VGG does not, running statistics and
-     spectral u move, every kernel (K1 backward included) launched;
+     spectral u move, every kernel of the path (K1 backward included)
+     launched;
   7. the train model in float32 at batch 1, TF32 off: one forward+backward
      on the card (kernels) against the CPU (plain versions), same noise and
-     click: every loss term and the gradient of each optimizer group.
+     click: every loss term and the gradient of each optimizer group;
+  8. on-the-fly flow: OnTheFlyFlow (FlowNet2 at its one width, 162M seeded
+     parameters, float32) on a journal batch of 3, all 30 frame pairs in
+     one call; its outputs replace the batch's precomputed flows and feed
+     one train step with use_pre_processed_of: false. K5 launched once per
+     call and K4 by the confidence; FlowNet2 card vs CPU in float32 at one
+     64x128 pair, TF32 off;
+  9. a ServingModel at configs/c2m_long_horizon.yaml, full width and depth
+     (512x1024, 1 + 10 frames, 24 nodes, bfloat16 compute), buckets (1, 4):
+     batch 4 with GT thetas, batch 1 and batch 3 (padded into 4) on the
+     click path. K3 launched and K2 not; latency and peak memory;
+ 10. the rasterizer alone at one 512x1024 clip, card (K3, K4) vs CPU;
+ 11. two train steps at the long-horizon config, batch 1 (the YAML's 16 is
+     one clip per chip of a 16-chip mesh), with the checks of phase 6; K1
+     forward and backward, K3 and K4 launched; step time and peak memory.
 With --profile, torch.profiler splits one warm train step and one warm
-request by operator and by kernel (printed).
+request of each config by operator and by kernel (printed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero at once when no
@@ -41,7 +63,9 @@ CUDA device is visible. Imports nothing of JAX and nothing of c2m_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import json
 import os
 import statistics
@@ -54,11 +78,21 @@ import torch
 
 BUCKET = 12
 SEED = 0
+LONG_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "c2m_long_horizon.yaml")
+LONG_BUCKETS = (1, 4)
 
 # tolerances of kernel vs plain version on the card, and why
 TOL_F32 = 1e-5          # same float32 ops; the plain CUDA ops may contract
 TOL_BF16 = 2.0 ** -8    # one bf16 rounding of the same float32 value in [0,1]
 TOL_SPLAT = 1e-5        # atomics reorder float32 sums of masses <= ~4
+TOL_CORR = 1e-5         # the same float32 products summed over 256 channels
+                        # in another order; means of order 1
+TOL_FLOWNET = 1e-3      # FlowNet2 card vs CPU, float32, TF32 off: ~100 conv
+                        # layers summed in other orders; flows of order 1 px
+TOL_OCC = 1e-3          # share of occlusion pixels that may differ card vs
+                        # CPU: splat atomics at the 0.5 threshold, and the
+                        # neighbours of a flipped winner pixel
 TOL_FLIP = 1e-4         # share of {0,1} pixels allowed to flip at a threshold
 TOL_SLICE = 5e-4        # generated frames, card vs CPU (float32 conv sums)
 TOL_PAD = 2.0 ** -9     # padded vs unpadded rows: cuDNN may pick other bf16
@@ -120,6 +154,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """float32 matmuls and convolutions in full float32 inside the block."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+
+
 def grid_of(flow: torch.Tensor) -> torch.Tensor:
     """The normalized grid for which F.grid_sample(padding_mode='border',
     align_corners=False) computes K1's function."""
@@ -135,6 +183,8 @@ def phase_kernels(dev):
     """Phase 3: kernel vs plain version at the two paths' shapes."""
     import torch.nn.functional as F
     from c2m_tpu_torch.ops import splat
+    from c2m_tpu_torch.ops.hopper import correlation_kernel as ck
+    from c2m_tpu_torch.ops.hopper import maskwarp_banded as mb
     from c2m_tpu_torch.ops.hopper import maskwarp_kernel as mk
     from c2m_tpu_torch.ops.hopper import splat_kernel as sk
     from c2m_tpu_torch.ops.hopper import warp_kernels as wk
@@ -312,9 +362,11 @@ def phase_kernels(dev):
                 for a in (inst, ids, np.ones((b, n), bool), th)]
         run = lambda: mk.warp_masks_winner(*args)               # noqa: E731
         plain = lambda: mk.warp_masks_winner_plain(*args)       # noqa: E731
+        k3 = lambda: mb.warp_masks_winner_banded(*args)         # noqa: E731
         winner = run()
         frac = (winner != plain()).float().mean().item()
-        ms, plain_ms = time_ms(run), time_ms(plain, reps=5)
+        check(torch.equal(winner, k3()), f"K2 {role}: differs from K3")
+        ms, plain_ms, k3_ms = time_ms(run), time_ms(plain, reps=5), time_ms(k3)
         # per output pixel 6 operations for its base coordinates, and per
         # valid node ~30 (affine, source coordinate, bilinear weights,
         # interpolation)
@@ -323,16 +375,17 @@ def phase_kernels(dev):
                    6 * winner.numel() + 30 * n_valid)
         log(f"  warp_masks_winner {role} [{b},16,128,256]x[{b},16,5,6]: winner "
             f"mismatch {frac:.3g} of pixels (tol {TOL_FLIP})  kernel {ms:.4f} "
-            f"ms  plain {plain_ms:.4f} ms  bound {bd['bound_ms']:.4f} ms "
+            f"ms  K3 on the same inputs {k3_ms:.4f} ms  plain {plain_ms:.4f} "
+            f"ms  bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']})  no single library call")
         check(frac <= TOL_FLIP, f"winner mismatch {frac} > {TOL_FLIP}")
-        return {"max_abs_err": frac, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "shape": [b, n, t, h, w],
+        return {"max_abs_err": frac, "ms": ms, "k3_ms": k3_ms,
+                "plain_ms": plain_ms, "library_ms": None,
+                "shape": [b, n, t, h, w],
                 "err": "winner mismatch fraction", **bd}
 
-    def splat_case(b, role):
-        """K4 at [b, 128, 256, 2] coords (base grid + a +-10 px flow)."""
-        h, w = 128, 256
+    def splat_case(b, role, h=128, w=256):
+        """K4 at [b, h, w, 2] coords (base grid + a +-10 px flow)."""
         flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 20).to(dev)
         xs = torch.arange(w, device=dev, dtype=torch.float32)
         ys = torch.arange(h, device=dev, dtype=torch.float32)
@@ -346,7 +399,7 @@ def phase_kernels(dev):
                  != splat.clip_mask(want.clamp(0, 1))).float().mean().item()
         ms, plain_ms = time_ms(run), time_ms(plain)
         bd = bound(nbytes(coords, got), 14 * got.numel())
-        log(f"  corresponding_map {role} [{b},128,256,2]: max|diff| {err:.3g} "
+        log(f"  corresponding_map {role} [{b},{h},{w},2]: max|diff| {err:.3g} "
             f"(tol {TOL_SPLAT}), 0.5-threshold flips {flips:.3g} (tol "
             f"{TOL_FLIP})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
@@ -356,6 +409,106 @@ def phase_kernels(dev):
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": None, "shape": [b, h, w, 2], "flips": flips, **bd}
 
+    def banded_case(b, kind):
+        """K3 at [b, 24, 512, 1024] x [b, 24, 10, 6] against the plain winner
+        and against K2 on the same inputs. kind: 'gt' axis-aligned
+        half-integer pixel translations (no sample near the threshold: 0
+        mismatches), 'gnn' small scale, shear and translation noise, 'zoom'
+        as 'gnn' with node 0 covering the middle of the map, rotated by 1 rad
+        and zoomed out 6x, so that its regions overflow the staging budget
+        (the in-kernel gather branch)."""
+        n, t, h, w = 24, 10, 512, 1024
+        rng = np.random.RandomState(SEED)
+        inst = np.zeros((b, h, w), np.float32)
+        for bi in range(b):
+            for k in range(n):
+                bh, bw = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
+                y0, x0 = rng.randint(0, h - bh), rng.randint(0, w - bw)
+                inst[bi, y0:y0 + bh, x0:x0 + bw] = 26001 + k
+        ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
+        th = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (b, n, t, 1))
+        if kind == "gt":
+            th[..., 2] = (rng.randint(-40, 41, (b, n, t)) + 0.5) * 2.0 / w
+            th[..., 5] = (rng.randint(-20, 21, (b, n, t)) + 0.5) * 2.0 / h
+        else:
+            th[..., 0] += rng.randn(b, n, t) * 0.05
+            th[..., 4] += rng.randn(b, n, t) * 0.05
+            th[..., 1] = rng.randn(b, n, t) * 0.03
+            th[..., 3] = rng.randn(b, n, t) * 0.03
+            th[..., 2] = rng.randn(b, n, t) * 0.1
+            th[..., 5] = rng.randn(b, n, t) * 0.1
+        if kind == "zoom":
+            c, sn = 6 * np.cos(1.0), 6 * np.sin(1.0)
+            th[:, 0] = np.array([c, -sn, 0.1, sn, c, -0.05], np.float32)
+            inst[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = ids[0, 0]
+        args = [torch.as_tensor(a, device=dev)
+                for a in (inst, ids, np.ones((b, n), bool), th)]
+        run = lambda: mb.warp_masks_winner_banded(*args)        # noqa: E731
+        k2 = lambda: mk.warp_masks_winner(*args)                # noqa: E731
+        plain = lambda: mk.warp_masks_winner_plain(*args)       # noqa: E731
+        winner = run()
+        frac = (winner != plain()).float().mean().item()
+        vs_k2 = (winner != k2()).float().mean().item()
+        plan = mb.source_windows_plain(
+            args[3], h, w, boxes=mb.node_boxes_plain(*args[:3]))
+        gather_tiles = int(plan["gather"].sum().item())
+        ms, k2_ms = time_ms(run), time_ms(k2)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        # one compare per (source pixel, node) for the boxes; per output
+        # pixel 6 operations for its base coordinates; per (node, tile) ~60
+        # for the window, and where the window meets the node's box ~30 per
+        # pixel of the tile (this run's maps and thetas: a tile pays nothing
+        # per pixel for a node it cannot touch)
+        live = int((~plan["skip"]).sum().item())
+        bd = bound(nbytes(*args) + nbytes(winner),
+                   b * n * h * w + 6 * winner.numel()
+                   + 60 * plan["skip"].numel()
+                   + live * 30 * mb.TILE[0] * mb.TILE[1])
+        tol = 0.0 if kind == "gt" else TOL_FLIP
+        log(f"  warp_masks_banded {kind} [{b},24,512,1024]x[{b},24,10,6]: "
+            f"winner mismatch vs plain {frac:.3g} (tol {tol:.3g}), vs K2 "
+            f"{vs_k2:.3g} (tol 0); {live} of {plan['skip'].numel()} (node, "
+            f"tile) pairs visited, {gather_tiles} over the staging budget; "
+            f"kernel {ms:.4f} ms  K2 on the same inputs "
+            f"{k2_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
+            f"call")
+        check(frac <= tol, f"K3 {kind} B={b}: mismatch vs plain {frac} > {tol}")
+        check(vs_k2 == 0.0, f"K3 {kind} B={b}: differs from K2 in {vs_k2}")
+        check((gather_tiles > 0) == (kind == "zoom"),
+              f"K3 {kind} B={b}: {gather_tiles} windows over the budget")
+        return {"max_abs_err": frac, "ms": ms, "k2_ms": k2_ms,
+                "plain_ms": plain_ms, "library_ms": None,
+                "shape": [b, n, t, h, w], "thetas": kind,
+                "windows_over_budget": gather_tiles,
+                "pairs_visited": live, "pairs": plan["skip"].numel(),
+                "err": "winner mismatch fraction", **bd}
+
+    def correlation_case(shape, role):
+        """K5 at FlowNetC's grid (max displacement 20, stride 2)."""
+        md, stride = 20, 2
+        a = torch.randn(shape, generator=g).to(dev)
+        b = torch.randn(shape, generator=g).to(dev)
+        run = lambda: ck.correlation(a, b, md, stride)          # noqa: E731
+        plain = lambda: ck.correlation_plain(a, b, md, stride)  # noqa: E731
+        got = run()
+        err = (got - plain()).abs().max().item()
+        ms, plain_ms = time_ms(run), time_ms(plain, reps=3, warmup=1)
+        # 2 C operations per (pixel, displacement) pair that stays inside
+        # the image; pairs that leave it are zeros and cost nothing
+        bsz, h, w, c = shape
+        steps = range(-md, md + 1, stride)
+        ny = sum(1 for y in range(h) for d in steps if 0 <= y + d < h)
+        nx = sum(1 for x in range(w) for d in steps if 0 <= x + d < w)
+        bd = bound(nbytes(a, b, got), 2 * c * bsz * ny * nx)
+        log(f"  correlation {role} {list(shape)} -> {list(got.shape)}: "
+            f"max|diff| {err:.3g} (tol {TOL_CORR})  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})  no single library call")
+        check(err <= TOL_CORR, f"correlation {shape}: max|diff| {err}")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "shape": list(shape), **bd}
+
     rows["warp_masks_winner"] = maskwarp_case(12, "serving")
     train["warp_masks_winner"] = maskwarp_case(3, "train")
     rows["corresponding_map"] = splat_case(60, "serving")
@@ -364,6 +517,43 @@ def phase_kernels(dev):
     # the train step's shape ride along under "train"
     for name, case in train.items():
         rows[name]["train"] = case
+
+    # K3: its row is the long-horizon request's shape (bucket 4) with
+    # GNN-like thetas; the other cases ride along
+    rows["warp_masks_banded"] = banded_case(4, "gnn")
+    rows["warp_masks_banded"]["cases"] = [
+        banded_case(4, "gt"), banded_case(4, "zoom"), banded_case(1, "gt"),
+        banded_case(1, "gnn"), banded_case(1, "zoom")]
+    # K5: the journal train batch's 30 frame pairs, and one 512x1024 pair
+    rows["correlation"] = correlation_case((30, 16, 32, 256), "on-the-fly")
+    rows["correlation"]["cases"] = [
+        correlation_case((2, 64, 128, 256), "512x1024 pairs")]
+    # K4 at the on-the-fly call's 30 frame pairs (FlowNet2's confidence)
+    rows["corresponding_map"]["onthefly"] = splat_case(30, "onthefly")
+    # K1 and K4 at the long-horizon shapes: 10 folded frames per clip in
+    # the train step, 40 in a bucket-4 request; the four decoder skips and
+    # the bottleneck are the five bf16 launches of a request or a step
+    long_skips = [(128, 256, 64), (64, 128, 128), (32, 64, 256),
+                  (16, 32, 512)]
+    for b, role in ((10, "long_horizon_train"), (40, "long_horizon_serving")):
+        rows["resample_bf16"][role + "_skips"] = [
+            resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (b, *hwc), True,
+                          role + " decoder skip") for hwc in long_skips]
+        rows["resample_bf16"][role] = resample_case(
+            wk.RESAMPLE_BF16, torch.bfloat16, (b, 64, 128, 256), True, role)
+        rows["resample_f32"][role] = resample_case(
+            wk.RESAMPLE_F32, torch.float32, (b, 512, 1024, 3), False, role)
+        rows["corresponding_map"][role] = splat_case(b, role, 512, 1024)
+    rows["resample_bwd_bf16"]["long_horizon_train_skips"] = [
+        backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, (10, *hwc), True,
+                      (True, False, False), "long_horizon_train decoder skip")
+        for hwc in long_skips]
+    rows["resample_bwd_bf16"]["long_horizon_train"] = backward_case(
+        wk.RESAMPLE_BWD_BF16, torch.bfloat16, (10, 64, 128, 256), True,
+        (True, True, True), "long_horizon_train")
+    rows["resample_bwd_f32"]["long_horizon_train"] = backward_case(
+        wk.RESAMPLE_BWD_F32, torch.float32, (10, 512, 1024, 3), False,
+        (False, True, False), "long_horizon_train")
     return rows
 
 
@@ -382,13 +572,14 @@ def build_model(cfg):
     return model.eval()
 
 
-def requests(cfg, dev):
-    """Three requests of synthetic scenes with all 16 nodes real."""
+def requests(cfg, dev, sizes=(BUCKET, 5, BUCKET)):
+    """One request per entry of ``sizes``: synthetic scenes with every
+    object node real, a latent and one click per clip."""
     from c2m_tpu_torch.data.synthetic import make_batch
     from c2m_tpu_torch.serving import z_dim
     n = cfg.dataset_params.max_objects
     out = []
-    for seed, bs in ((1, BUCKET), (2, 5), (3, BUCKET)):
+    for seed, bs in enumerate(sizes, start=1):
         batch = make_batch(cfg, batch_size=bs, seed=seed, num_objects=n,
                            device=dev)
         g = torch.Generator().manual_seed(100 + seed)
@@ -399,35 +590,51 @@ def requests(cfg, dev):
     return out
 
 
-def phase_serving(cfg, dev, profile: bool = False):
-    """Phase 4: the serving path through ServingModel; returns launch counts."""
+def expect_launched(counts, launched, where):
+    """Exactly the kernels in ``launched`` ran on this path."""
+    for name, c in counts.items():
+        check((c > 0) == (name in launched),
+              f"kernel {name}: {c} launches on {where}")
+
+
+# the kernels of each path (K2 serves maps up to 128x256 x 12, K3 above)
+FORWARD_128 = {"resample_f32", "resample_bf16", "warp_masks_winner",
+               "corresponding_map"}
+FORWARD_512 = {"resample_f32", "resample_bf16", "warp_masks_banded",
+               "corresponding_map"}
+BACKWARD = {"resample_bwd_f32", "resample_bwd_bf16"}
+
+
+def serve(phase, cfg, dev, buckets, plan, launched, profile):
+    """A ServingModel pair (GT thetas / click path) around one seeded model
+    answers one request per entry (batch size, GT thetas?) of ``plan``.
+    Returns the launch counts."""
     from c2m_tpu_torch.models.c2m import DTYPES
     from c2m_tpu_torch.serving import ServingModel
     kernels = all_kernels()
-    log(f"[phase 4] ServingModel, journal config at full width, bucket "
-        f"{BUCKET}, dtype {cfg.train_params.dtype}")
-    model = build_model(cfg).to(dev).set_compute_dtype(
+    model = build_model(cfg).to(dev).use_compute_dtype(
         DTYPES[cfg.train_params.dtype])
-    gt = ServingModel(model, (BUCKET,), use_gt_eval=True)
-    click_path = ServingModel(model, (BUCKET,), use_gt_eval=False)
-    reqs = requests(cfg, dev)
-    plan = [("batch 12, GT thetas", gt, reqs[0]),
-            ("batch 5 padded to 12, GT thetas", gt, reqs[1]),
-            ("batch 12, click path (GNN thetas)", click_path, reqs[2])]
+    gt = ServingModel(model, buckets, use_gt_eval=True)
+    click_path = ServingModel(model, buckets, use_gt_eval=False)
+    sizes = [bs for bs, _ in plan]
+    reqs = requests(cfg, dev, sizes)
     h, w = cfg.test_params.input_size
     tpred = cfg.test_params.num_predicted_frames
     for k in kernels:
         k.launches = 0
-    warm_request_ms = None
-    for name, server, (batch, z, click) in plan:
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms = {}
+    for i, (batch, z, click) in enumerate(reqs):
+        bs = z.shape[0]
+        server = gt if plan[i][1] else click_path
+        name = (f"batch {bs} in bucket {gt.bucket_for(bs)}, "
+                + ("GT thetas" if server is gt else "click path (GNN thetas)"))
         times = []
         for _ in range(3):               # cold (cuDNN plans), then warm
             t0 = time.perf_counter()
             out = server(batch, z, click)
             times.append((time.perf_counter() - t0) * 1e3)
-        if warm_request_ms is None:
-            warm_request_ms = min(times[1:])
-        bs = z.shape[0]
+        warm_ms[i] = min(times[1:])
         gen = out["generated"]
         check(gen.shape == (bs, tpred, h, w, 3), f"{name}: shape {gen.shape}")
         check(bool(np.isfinite(gen).all()), f"{name}: non-finite frames")
@@ -443,21 +650,44 @@ def phase_serving(cfg, dev, profile: bool = False):
             f"{gen.max():.3f}]; latency ms cold {times[0]:.1f}, warm "
             f"{times[1]:.1f}, {times[2]:.1f}")
     counts = {k.name: k.launches for k in kernels}
-    log(f"  launches over the three requests: {counts}")
-    for name, c in counts.items():
-        # serving differentiates nothing: the backward kernels stay at 0
-        check((c > 0) != ("_bwd_" in name),
-              f"kernel {name}: {c} launches on the serving path")
+    log(f"  launches over the {len(reqs)} requests (3 calls each): {counts}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # serving differentiates nothing: the backward kernels stay at 0
+    expect_launched(counts, launched, f"the serving path of {phase}")
     if profile:
-        profile_window("request", lambda: gt(*reqs[0]), warm_request_ms)
+        profile_window(f"request ({phase})", lambda: gt(*reqs[0]), warm_ms[0])
     # padded request == the same rows served alone in a bucket of their own
-    solo = ServingModel(model, (5,), use_gt_eval=True)(*reqs[1])
-    padded = gt(*reqs[1])
+    i = next(i for i, bs in enumerate(sizes) if bs not in buckets)
+    server = gt if plan[i][1] else click_path
+    solo = ServingModel(model, (sizes[i],),
+                        use_gt_eval=server.use_gt_eval)(*reqs[i])
+    padded = server(*reqs[i])
     pad_err = float(np.abs(solo["generated"] - padded["generated"]).max())
-    log(f"  padded vs unpadded batch 5: max|diff| generated {pad_err:.3g} "
-        f"(tol {TOL_PAD:.3g})")
+    log(f"  padded vs unpadded batch {sizes[i]}: max|diff| generated "
+        f"{pad_err:.3g} (tol {TOL_PAD:.3g})")
     check(pad_err <= TOL_PAD, f"padded rows differ by {pad_err} > {TOL_PAD}")
     return counts
+
+
+def phase_serving(cfg, dev, profile: bool = False):
+    """Phase 4: the journal serving path through ServingModel."""
+    log(f"[phase 4] ServingModel, journal config at full width, bucket "
+        f"{BUCKET}, compute {cfg.train_params.dtype} (cast at use), float32 "
+        f"parameters")
+    return serve("the journal config", cfg, dev, (BUCKET,),
+                 ((BUCKET, True), (5, True), (BUCKET, False)), FORWARD_128,
+                 profile)
+
+
+def phase_long_serving(cfg, dev, profile: bool = False):
+    """Phase 9: the long-horizon serving path."""
+    tp = cfg.test_params
+    log(f"[phase 9] ServingModel, long-horizon config at full width and "
+        f"depth: {tp.input_size}, {tp.num_predicted_frames} predicted frames, "
+        f"{cfg.dataset_params.max_objects} nodes, buckets {LONG_BUCKETS}, "
+        f"compute {cfg.train_params.dtype}")
+    return serve("the long-horizon config", cfg, dev, LONG_BUCKETS,
+                 ((4, True), (1, False), (3, False)), FORWARD_512, profile)
 
 
 def phase_cpu_parity(cfg, dev):
@@ -466,8 +696,6 @@ def phase_cpu_parity(cfg, dev):
     from c2m_tpu_torch.serving import z_dim
     cfg32 = copy.deepcopy(cfg)
     cfg32.train_params.dtype = "float32"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     log("[phase 5] float32 slice at batch 2: card (kernels) vs CPU (plain), "
         "TF32 off")
     cpu_model = build_model(cfg32)
@@ -500,10 +728,12 @@ def phase_cpu_parity(cfg, dev):
 
 
 def all_kernels():
-    from c2m_tpu_torch.ops.hopper import (maskwarp_kernel, splat_kernel,
+    from c2m_tpu_torch.ops.hopper import (correlation_kernel, maskwarp_banded,
+                                          maskwarp_kernel, splat_kernel,
                                           warp_kernels)
     return (warp_kernels.KERNELS + maskwarp_kernel.KERNELS
-            + splat_kernel.KERNELS)
+            + maskwarp_banded.KERNELS + splat_kernel.KERNELS
+            + correlation_kernel.KERNELS)
 
 
 def train_batch(cfg, dev, batch_size, seed):
@@ -514,8 +744,10 @@ def train_batch(cfg, dev, batch_size, seed):
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def phase_train(cfg, dev, profile: bool):
-    """Phase 6: three steps of the train step at the journal config."""
+def phase_train(cfg, dev, profile: bool, phase: int = 6,
+                what: str = "journal config", steps: int = 3,
+                launched=frozenset(FORWARD_128 | BACKWARD)):
+    """Phases 6 and 11: ``steps`` steps of the train step at ``cfg``."""
     from c2m_tpu_torch.nn.layers import BatchNorm, SpectralNormConv
     from c2m_tpu_torch.train.state import (GROUPS, create_train_state,
                                            param_group)
@@ -523,7 +755,7 @@ def phase_train(cfg, dev, profile: bool):
     from c2m_tpu_torch.train.model import total_generator_loss
     from c2m_tpu_torch.train.step import make_eval_step, make_train_step
     tp = cfg.train_params
-    log(f"[phase 6] train step, journal config at full width and depth: "
+    log(f"[phase {phase}] train step, {what} at full width and depth: "
         f"batch {tp.batch_size}, {tp.num_predicted_frames} predicted frames "
         f"at {tp.input_size}, compute {tp.dtype}, float32 parameters")
     state = create_train_state(cfg, seed=SEED, device=dev)
@@ -531,7 +763,8 @@ def phase_train(cfg, dev, profile: bool):
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "parameters must stay float32")
     n_params = sum(p.numel() for p in model.parameters())
-    batches = [train_batch(cfg, dev, tp.batch_size, seed) for seed in (11, 12, 13)]
+    batches = [train_batch(cfg, dev, tp.batch_size, 11 + i)
+               for i in range(steps)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step = make_train_step(cfg)
     for k in all_kernels():
@@ -557,9 +790,9 @@ def phase_train(cfg, dev, profile: bool):
     check(want_keys <= set(history[0]), f"metrics lack "
           f"{sorted(want_keys - set(history[0]))}")
     after = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    # the three steps saw three batches, so their totals differ anyway: what
+    # the steps saw different batches, so their totals differ anyway: what
     # shows learning is the generator objective of one batch, with the same
-    # noise and click, under the weights before and after the three steps
+    # noise and click, under the weights before and after the steps
     g = torch.Generator().manual_seed(SEED)
     eps = torch.randn(tp.batch_size, z_dim(cfg), generator=g).to(dev)
     click = torch.zeros(tp.batch_size, cfg.dataset_params.max_objects,
@@ -573,7 +806,7 @@ def phase_train(cfg, dev, profile: bool):
             objective[when] = float(total_generator_loss(
                 cfg, eval_step(state, batches[0], eps, click)[1]))
     log(f"  generator objective of batch 1 in eval mode: "
-        f"{objective['before']:.4f} before the three steps, "
+        f"{objective['before']:.4f} before the {steps} steps, "
         f"{objective['after']:.4f} after")
     check(all(np.isfinite(v) for v in objective.values())
           and objective["before"] != objective["after"],
@@ -597,22 +830,168 @@ def phase_train(cfg, dev, profile: bool):
             check(not torch.equal(after[name + ".running_mean"],
                                   before[name + ".running_mean"]),
                   f"running mean of {name} did not move")
-    check(state.step == 3, "step count")
+    check(state.step == steps, "step count")
     log(f"  {n_params / 1e6:.1f}M parameters; step ms cold {times[0]:.1f}, "
-        f"warm {times[1]:.1f}, {times[2]:.1f}; peak memory "
+        f"warm {', '.join(f'{t:.1f}' for t in times[1:])}; peak memory "
         f"{peak / 2 ** 30:.2f} GiB")
     for i, m in enumerate(history):
         log(f"  step {i + 1}: total_gen {m['total_gen']:.4f}  image D "
             f"{m['total_image_dis']:.4f}  video D {m['total_video_dis']:.4f}  "
             f"perceptual {m['perceptual']:.4f}  warped {m['warped']:.4f}  "
             f"kl {m['kl']:.4f}")
-    log(f"  launches over the three steps: {counts}")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched by the train step")
+    log(f"  launches over the {steps} steps: {counts}")
+    expect_launched(counts, launched, f"the train step of the {what}")
     if profile:
-        profile_window("train_step", lambda: step(state, batches[0]),
-                       min(times[1:]))
+        profile_window(f"train_step ({what})",
+                       lambda: step(state, batches[0]), min(times[1:]))
     return counts
+
+
+def phase_long_train(cfg, dev, profile: bool):
+    """Phase 11: two train steps at the long-horizon config, one clip per
+    step (the YAML's batch 16 is one clip per chip of a 16-chip mesh)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.train_params.batch_size = 1
+    return phase_train(cfg, dev, profile, phase=11,
+                       what="long-horizon config", steps=2,
+                       launched=frozenset(FORWARD_512 | BACKWARD))
+
+
+def smooth_frames(n, h, w, seed):
+    """[n, h, w, 3] frames in [0, 1]: sums of low-frequency sinusoids."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.full((n, h, w, 3), 0.5, np.float32)
+    for i in range(n):
+        for c in range(3):
+            for _ in range(3):
+                fy, fx, ph = rng.rand() * 0.2, rng.rand() * 0.2, rng.rand() * 6
+                out[i, ..., c] += np.sin(ys * fy + xs * fx + ph) / 6
+    return out
+
+
+def phase_onthefly(cfg, dev):
+    """Phase 8: FlowNet2 on-the-fly flow feeding one train step."""
+    from c2m_tpu_torch.models.flownet2 import compute_flow_and_conf
+    from c2m_tpu_torch.train.flow_onthefly import OnTheFlyFlow
+    from c2m_tpu_torch.train.state import create_train_state
+    from c2m_tpu_torch.train.step import make_train_step
+    cfg = copy.deepcopy(cfg)
+    cfg.train_params.use_pre_processed_of = False
+    tp = cfg.train_params
+    pairs = tp.batch_size * (2 * tp.num_predicted_frames
+                             + tp.num_input_frames - 1)
+    t0 = time.perf_counter()
+    otf = OnTheFlyFlow(tp.num_input_frames, tp.num_predicted_frames,
+                       device=dev)
+    n_params = sum(p.numel() for p in otf.model.parameters())
+    log(f"[phase 8] on-the-fly flow: FlowNet2, {n_params / 1e6:.1f}M seeded "
+        f"parameters (built in {time.perf_counter() - t0:.1f} s), float32, "
+        f"{pairs} frame pairs of {tp.input_size} per call, feeding one train "
+        f"step with use_pre_processed_of: false")
+    batch = train_batch(cfg, dev, tp.batch_size, 31)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    times = []
+    for _ in range(4):                   # cold (cuDNN plans), then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flows = otf(batch["video"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_call = {k.name: k.launches // 4 for k in kernels}
+    check(per_call["correlation"] == 1 and per_call["corresponding_map"] == 1,
+          f"on-the-fly call launched {per_call}")
+    for key, val in flows.items():
+        # the journal batch carries the backward entries only (use_fw_of is
+        # false there); a forward entry has its backward twin's shape
+        want = batch[key.replace("_fw_", "_bw_")].shape
+        check(val.shape == want, f"{key}: {tuple(val.shape)} is not the "
+              f"batch's precomputed entry's shape {tuple(want)}")
+        check(bool(torch.isfinite(val).all()), f"{key}: not finite")
+        if key.endswith("occ"):
+            check(float(val.min()) >= 0 and float(val.max()) <= 1,
+                  f"{key} outside [0, 1]")
+    check({"target_bw_of", "target_bw_occ", "target_fw_of", "target_fw_occ"}
+          == set(flows), f"on-the-fly keys {sorted(flows)}")
+    log(f"  call ms cold {times[0]:.1f}, warm "
+        f"{', '.join(f'{t:.1f}' for t in times[1:])}; |flow| up to "
+        f"{float(flows['target_bw_of'].abs().max()):.3f} px; launches per "
+        f"call: correlation {per_call['correlation']}, corresponding_map "
+        f"{per_call['corresponding_map']}")
+
+    # the trainer's order: batch.update(flows), then the step
+    batch.update(flows)
+    state = create_train_state(cfg, seed=SEED, device=dev)
+    metrics = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    bad = [k for k, v in metrics.items() if not np.isfinite(float(v))]
+    check(not bad, f"train step on on-the-fly flows: non-finite {bad}")
+    counts = {k.name: k.launches for k in kernels}
+    log(f"  one train step on these flows: total_gen "
+        f"{float(metrics['total_gen']):.4f}, flow_reconstruction "
+        f"{float(metrics['flow_reconstruction']):.4f}; launches over the 4 "
+        f"calls and the step: {counts}")
+    expect_launched(counts, FORWARD_128 | BACKWARD | {"correlation"},
+                    "the on-the-fly path")
+
+    # FlowNet2 alone, card (K5, K4) vs CPU (plain versions), float32
+    frames = torch.from_numpy(smooth_frames(2, 64, 128, SEED)) * 2 - 1
+    with tf32_off(), torch.no_grad():
+        got = compute_flow_and_conf(otf.model, frames[:1].to(dev),
+                                    frames[1:].to(dev))
+        cpu_model = copy.deepcopy(otf.model).cpu()
+        want = compute_flow_and_conf(cpu_model, frames[:1], frames[1:])
+    err_flow = (got[0].cpu() - want[0]).abs().max().item()
+    err_conf = (got[1].cpu() - want[1]).abs().max().item()
+    log(f"  FlowNet2 at one 64x128 pair, card vs CPU, TF32 off: max|diff| flow "
+        f"{err_flow:.3g} of up to {want[0].abs().max().item():.3g} px, "
+        f"confidence {err_conf:.3g} (tol {TOL_FLOWNET} both)")
+    check(err_flow <= TOL_FLOWNET and err_conf <= TOL_FLOWNET,
+          f"FlowNet2 card vs CPU: flow {err_flow}, confidence {err_conf}")
+    return counts
+
+
+def phase_long_raster_parity(cfg, dev):
+    """Phase 10: the rasterizer at one long-horizon clip, card vs CPU."""
+    from c2m_tpu_torch.ops.raster import banded, generate_sparse_motion
+    tp = cfg.train_params
+    h, w = tp.input_size
+    n, t = cfg.dataset_params.max_objects, tp.num_predicted_frames
+    check(banded(1, n, t, h, w), "one long-horizon clip must route to K3")
+    log(f"[phase 10] rasterizer alone at [1,{n},{t},{h},{w}]: card (K3, K4) "
+        f"vs CPU (plain versions)")
+    rng = np.random.RandomState(SEED)
+    inst = np.zeros((1, h, w, 1), np.float32)
+    for k in range(n):
+        bh, bw = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
+        y0, x0 = rng.randint(0, h - bh), rng.randint(0, w - bw)
+        inst[0, y0:y0 + bh, x0:x0 + bw, 0] = 26001 + k
+    ids = 26001 + np.arange(n, dtype=np.int32)[None]
+    th = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (1, n, t, 1))
+    th += (rng.randn(1, n, t, 6) * np.array([.05, .03, .1, .03, .05, .1])
+           ).astype(np.float32)
+    args = (inst, ids, np.ones((1, n), bool), th)
+    outs = []
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        out = generate_sparse_motion(*(torch.as_tensor(a, device=d)
+                                       for a in args))
+        outs.append({k: v.cpu() for k, v in out.items()})
+        log(f"  on {torch.device(d).type}: {time.perf_counter() - t0:.1f} s")
+    cpu, gpu = outs
+    same = cpu["winner_bw"] == gpu["winner_bw"]
+    wmis = 1.0 - same.float().mean().item()
+    flow = ((cpu["sparse_motion_bw"] - gpu["sparse_motion_bw"]).abs()
+            .amax(dim=-1)[same].max().item())
+    occ = max((cpu[k] != gpu[k]).float().mean().item()
+              for k in ("sparse_occ_bw", "sparse_occ_fw"))
+    log(f"  winner_bw mismatch {wmis:.3g} (tol {TOL_FLIP}), sparse flow "
+        f"max|diff| {flow:.3g} px where the winner agrees (tol 1e-3), "
+        f"occlusion mismatch {occ:.3g} (tol {TOL_OCC})")
+    check(wmis <= TOL_FLIP and flow <= 1e-3 and occ <= TOL_OCC,
+          "rasterizer card vs CPU over tolerance at 512x1024")
 
 
 def phase_train_cpu_parity(cfg, dev):
@@ -623,8 +1002,6 @@ def phase_train_cpu_parity(cfg, dev):
     from c2m_tpu_torch.serving import z_dim
     cfg32 = copy.deepcopy(cfg)
     cfg32.train_params.dtype = "float32"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     log("[phase 7] float32 train model at batch 1, full width: card (kernels)"
         " vs CPU (plain), one forward+backward, TF32 off")
     torch.manual_seed(SEED)
@@ -737,23 +1114,42 @@ def main() -> int:
     log(f"[phase 2] kernels built from c2m_tpu_torch/csrc in "
         f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib)}")
 
+    def release():
+        """Hand a finished phase's cached blocks back, so that the next
+        phase's peak memory is its own."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
     rows = phase_kernels(dev)
+    release()
     cfg = load_config()                     # configs/c2m_journal_cityscapes.yaml
-    serving_counts = phase_serving(cfg, dev, profile)
-    phase_cpu_parity(cfg, dev)
-    train_counts = phase_train(cfg, dev, profile)
-    phase_train_cpu_parity(cfg, dev)
+    counts = {"serving": phase_serving(cfg, dev, profile)}
+    with tf32_off():
+        phase_cpu_parity(cfg, dev)
+    release()
+    counts["train"] = phase_train(cfg, dev, profile)
+    with tf32_off():
+        phase_train_cpu_parity(cfg, dev)
+    release()
+    counts["onthefly"] = phase_onthefly(cfg, dev)
+    release()
+    long_cfg = load_config(LONG_YAML)
+    counts["long_serving"] = phase_long_serving(long_cfg, dev, profile)
+    release()
+    phase_long_raster_parity(long_cfg, dev)
+    counts["long_train"] = phase_long_train(long_cfg, dev, profile)
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")
 
+    # launches: the sum over the five paths, each counted from 0 just
+    # before the path was driven; the comparisons of phase 3 are not in it
     kernels = []
     for k in all_kernels():
+        by_path = {f"launches_{path}": c[k.name] for path, c in counts.items()}
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": serving_counts[k.name] + train_counts[k.name],
-                        "launches_serving": serving_counts[k.name],
-                        "launches_train": train_counts[k.name],
+                        "launches": sum(by_path.values()), **by_path,
                         **rows[k.name]})
     log(smi)
     print(json.dumps({"kernels": kernels}))

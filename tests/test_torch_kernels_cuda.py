@@ -6,7 +6,8 @@ tests/test_torch_kernels_cuda.py`` (``--noconftest``: the suite's
 conftest.py sets up JAX, which a GPU machine serving the port need not
 have; nothing here uses it). The pytest twin of chip_smoke.py's
 kernel phase, at small shapes and at the serving slice's shapes
-(B=12, T=5, N=16, 128x256).
+(B=12, T=5, N=16, 128x256), and for K3 and K5 at ragged shapes and at one
+long-horizon clip (24 nodes, 10 frames, 512x1024) and FlowNetC's map.
 """
 
 import numpy as np
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from c2m_tpu_torch.ops import splat
+from c2m_tpu_torch.ops.hopper import correlation_kernel as ck
+from c2m_tpu_torch.ops.hopper import maskwarp_banded as mb
 from c2m_tpu_torch.ops.hopper import maskwarp_kernel as mk
 from c2m_tpu_torch.ops.hopper import splat_kernel as sk
 from c2m_tpu_torch.ops.hopper import warp_kernels as wk
@@ -114,6 +117,76 @@ def test_winner_kernel_matches_plain(dev, shape):
     # only pixels whose sample lies within float rounding of 1 - 1e-5 can
     # flip (STATUS round 3 flip class)
     assert (got != want).float().mean().item() <= 1e-4
+
+
+def _special_thetas(kind, th, rng):
+    """half: axis-aligned half-integer pixel translations (no sample near a
+    threshold); zoom: node 0 rotated by 1 rad and zoomed out 6x, whose
+    regions overflow the staging budget (the in-kernel gather branch);
+    wild: every affine random at scale 3 (flips, off-image, far zooms)."""
+    b, n, t, _ = th.shape
+    if kind == "half":
+        th[...] = np.array([1, 0, 0, 0, 1, 0], np.float32)
+        th[..., 2] = (rng.randint(-9, 10, (b, n, t)) + 0.5) * 2.0
+        th[..., 5] = (rng.randint(-5, 6, (b, n, t)) + 0.5) * 2.0
+    elif kind == "zoom":
+        c, s = 6 * np.cos(1.0), 6 * np.sin(1.0)
+        th[:, 0] = np.array([c, -s, 0.1, s, c, -0.05], np.float32)
+    elif kind == "wild":
+        th[...] = rng.randn(b, n, t, 6) * 3.0
+    return th
+
+
+@pytest.mark.parametrize("kind", ["general", "half", "zoom", "wild"])
+@pytest.mark.parametrize("shape", [(2, 3, 2, 16, 40), (2, 5, 3, 50, 70),
+                                   (1, 24, 10, 512, 1024)])
+def test_banded_winner_kernel_matches_plain_and_k2(dev, shape, kind):
+    inst, ids, valid, th = _raster_inputs(*shape, seed=5)
+    th = _special_thetas(kind, th, np.random.RandomState(6))
+    if kind == "half":          # pixels: normalize by the map size
+        th[..., 2] /= shape[4]
+        th[..., 5] /= shape[3]
+    if kind == "zoom":          # a node large enough to overflow the budget
+        h, w = shape[3:]
+        inst[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = ids[0, 0]
+        valid[:, 0] = True
+    args = [torch.as_tensor(a, device=dev) for a in (inst, ids, valid, th)]
+    before = mb.WARP_MASKS_BANDED.launches
+    got = mb.warp_masks_winner_banded(*args)
+    torch.cuda.synchronize()
+    assert mb.WARP_MASKS_BANDED.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (
+        shape[0], shape[2], shape[3], shape[4])
+    # K3 and K2 evaluate the same float32 expression per pixel and node
+    assert torch.equal(got, mk.warp_masks_winner(*args))
+    want = mk.warp_masks_winner_plain(*args)
+    mismatch = (got != want).float().mean().item()
+    assert mismatch <= (0.0 if kind == "half" else 1e-4)
+    if kind == "zoom" and shape[3] >= 512:
+        plan = mb.source_windows_plain(
+            args[3], shape[3], shape[4], boxes=mb.node_boxes_plain(*args[:3]))
+        assert plan["gather"].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,md,stride", [
+    ((2, 9, 13, 20), 4, 2), ((2, 9, 13, 7), 3, 1), ((1, 5, 30, 33), 6, 3),
+    ((1, 4, 4, 8), 20, 2), ((30, 16, 32, 256), 20, 2),
+    ((2, 64, 128, 256), 20, 2)])
+def test_correlation_kernel_matches_plain(dev, shape, md, stride, dtype):
+    g = _gen(7)
+    a = torch.randn(shape, generator=g).to(dtype).to(dev)
+    b = torch.randn(shape, generator=g).to(dtype).to(dev)
+    before = ck.CORRELATION.launches
+    got = ck.correlation(a, b, md, stride)
+    torch.cuda.synchronize()
+    assert ck.CORRELATION.launches == before + 1
+    want = ck.correlation_plain(a, b, md, stride)
+    d = 2 * (md // stride) + 1
+    assert got.dtype == torch.float32 and got.shape == (*shape[:3], d * d)
+    # the same float32 products (bfloat16 inputs widened first) summed over
+    # C <= 256 channels in another order; means of order 1
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 def _bwd_inputs(shape, dtype, masked, dev, seed=4):
@@ -254,3 +327,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         wk.resample(img.half(), flow)                   # unsupported dtype
     with pytest.raises(ValueError):
         sk.corresponding_map(flow.double())
+    feat = torch.rand(1, 8, 8, 16, device=dev)
+    with pytest.raises(ValueError):
+        ck.correlation(feat.half(), feat.half())        # unsupported dtype
+    with pytest.raises(ValueError):
+        ck.correlation(feat, feat[:, :4])               # shapes differ
+    with pytest.raises(ValueError):                     # shared memory
+        ck.correlation(torch.rand(1, 2, 2, 4096, device=dev),
+                       torch.rand(1, 2, 2, 4096, device=dev))
+    inst = torch.zeros(1, 8, 8, device=dev)
+    ids = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, 2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):                     # thetas not float32
+        mb.warp_masks_winner_banded(
+            inst, ids, valid, torch.zeros(1, 2, 1, 6, device=dev).double())

@@ -48,7 +48,12 @@ def test_the_walk_sees_the_port_and_catches_an_import(tmp_path):
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert {"chip_smoke.py", "c2m_tpu_torch/config.py",
             "c2m_tpu_torch/train/step.py",
-            "c2m_tpu_torch/data/synthetic.py"} <= names
+            "c2m_tpu_torch/data/synthetic.py",
+            "c2m_tpu_torch/models/flownet2.py",
+            "c2m_tpu_torch/train/flow_onthefly.py",
+            "c2m_tpu_torch/ops/correlation.py",
+            "c2m_tpu_torch/ops/hopper/correlation_kernel.py",
+            "c2m_tpu_torch/ops/hopper/maskwarp_banded.py"} <= names
     probe = tmp_path / "probe.py"
     probe.write_text('"""from c2m_tpu import x (a docstring)"""\n'
                      "def f():\n    from c2m_tpu.config import Config\n"
@@ -82,6 +87,7 @@ def _entry_points():
     from c2m_tpu_torch.config import shrink_model, tiny_config
     from c2m_tpu_torch.data.synthetic import make_batch
     from c2m_tpu_torch.serving import ServingModel
+    from c2m_tpu_torch.train.flow_onthefly import OnTheFlyFlow
     from c2m_tpu_torch.train.state import create_train_state
     cfg = shrink_model(tiny_config())
     return {
@@ -91,12 +97,13 @@ def _entry_points():
         "ServingModel.from_artifact":
             lambda: ServingModel.from_artifact("/nonexistent"),
         "create_train_state": lambda: create_train_state(cfg),
+        "OnTheFlyFlow": lambda: OnTheFlyFlow(1, 5),
     }
 
 
 @pytest.mark.parametrize("name", ["make_batch", "ServingModel.from_variables",
                                   "ServingModel.from_artifact",
-                                  "create_train_state"])
+                                  "create_train_state", "OnTheFlyFlow"])
 def test_entry_point_defaults_to_the_card(name):
     """With no ``device`` an entry point asks for the card. This host has
     none, so it must raise an error that names CUDA, before anything else
