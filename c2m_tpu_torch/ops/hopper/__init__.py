@@ -49,9 +49,9 @@ _F = ctypes.c_float
 
 # C signatures of the entry points in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
-    # img, flow, mask, out, B, H, W, C, masked, stream
-    "c2m_resample_f32": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
-    "c2m_resample_bf16": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+    # img, flow, mask, out, B, H, W, C, masked, route, stream
+    "c2m_resample_f32": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
+    "c2m_resample_bf16": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
     # grad_out, img, flow, mask, grad_img, grad_flow, grad_mask, B, H, W, C,
     # masked, need_img, need_flow, need_mask, stream
     "c2m_resample_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
@@ -150,6 +150,8 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:                 # every launch comes through here
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -162,7 +164,12 @@ def library() -> ctypes.CDLL:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on t's device, as the integer a C entry
+    point takes. ``_cuda_getCurrentRawStream`` is private to torch (checked
+    on torch 2.11; the code torch.compile generates calls it too): it is what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` reads, without
+    making a Stream object before every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, name: str) -> None:
@@ -170,6 +177,8 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg) -> None:
+    """ValueError(msg) unless cond; msg may be a callable that makes the
+    text, so that a check on every launch formats nothing when it holds."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)

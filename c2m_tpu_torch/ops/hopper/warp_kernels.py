@@ -8,10 +8,12 @@ with ``jax.grad`` and has no backward kernel).
 
 A CPU tensor takes :func:`resample_plain`, forward and (through autograd)
 backward; a CUDA tensor goes through a ``torch.autograd.Function`` whose
-forward and backward launch the kernels or raise. One compiled kernel per
+forward and backward launch the kernels or raise. One entry point per
 image dtype (float32, bfloat16) and direction, each with its own launch
-count. The image gradient is a scatter of float atomics, summed in an order
-that changes from run to run: it agrees with autograd of the plain version
+count. The forward has several layouts of the same arithmetic onto threads
+(:func:`resample_route`): every one is a kernel of ``csrc/resample.cu``.
+The image gradient is a scatter of float atomics, summed in an order that
+changes from run to run: it agrees with autograd of the plain version
 to float32 summation error, not bit for bit.
 """
 
@@ -57,39 +59,127 @@ def resample_plain(image: torch.Tensor, flow: torch.Tensor,
     return out.to(image.dtype)
 
 
-def _check_inputs(image, flow, mask):
-    req = hopper.require
-    req(image.dim() == 4, f"image must be [B,H,W,C], got {tuple(image.shape)}")
+# The forward's routes and the number csrc/resample.cu knows each by.
+ROUTES = {"scalar": 0, "vec": 1, "pixel": 2, "scalar64": 3}
+_INT32 = 2 ** 31
+# channels that fill 16 bytes, the width of a lane's loads on the vec route
+VEC_CHANNELS = {torch.float32: 4, torch.bfloat16: 8}
+# the widest pixel of the pixel route (frames, flows, masks)
+PIXEL_MAX_CHANNELS = 4
+
+
+def resample_route(dtype: torch.dtype, shape, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/resample.cu`` the forward launches for an image
+    of ``dtype`` and ``shape`` [B, H, W, C] on the card. ``aligned``: image,
+    flow and output start on 16-byte boundaries (a contiguous view with a
+    storage offset need not).
+
+    - ``vec``: C fills whole 16-byte pieces (8 bfloat16 or 4 float32
+      channels): a lane blends one piece, a group of lanes shares a pixel;
+    - ``pixel``: up to 4 channels: a warp owns 32 pixels, a lane computes one
+      pixel's taps and the warp walks its 32*C elements together;
+    - ``scalar``: every other C, and unaligned tensors: a thread per element;
+    - ``scalar64``: the same with 64-bit indices, where 32 bits do not reach
+      (B*H*W or H*W*C of 2^31 and more for the first two routes, B*H*W*C for
+      ``scalar``).
+    Never the plain version: that is for CPU tensors only.
+    """
+    b, h, w, c = shape
+    if aligned and b * h * w < _INT32 and h * w * c < _INT32:
+        if c % VEC_CHANNELS[dtype] == 0:
+            return "vec"
+        if c <= PIXEL_MAX_CHANNELS:
+            return "pixel"
+    return "scalar" if b * h * w * c < _INT32 else "scalar64"
+
+
+def resample_pixel_route_plain(image: torch.Tensor, flow: torch.Tensor,
+                               mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The ``pixel`` route's addressing in plain PyTorch, for the CPU tests:
+    per pixel the offset of the top-left tap and the steps to its right and
+    lower neighbours (0 at the border), so that a row's two taps are one run
+    of 2C values starting at x0, or of C values where x0 is the last column.
+    Same blend, term for term, as :func:`resample_plain`."""
     b, h, w, c = image.shape
-    req(image.dtype in (torch.float32, torch.bfloat16),
-        f"image dtype {image.dtype} not float32/bfloat16")
+    xs = torch.arange(w, dtype=torch.float32, device=image.device)
+    ys = torch.arange(h, dtype=torch.float32, device=image.device)
+    wf = w / max(w - 1.0, 1e-6)
+    hf = h / max(h - 1.0, 1e-6)
+    sx = ((xs[None, None, :] + flow[..., 0].float()) * wf - 0.5).clamp(
+        0.0, w - 1.0)
+    sy = ((ys[None, :, None] + flow[..., 1].float()) * hf - 0.5).clamp(
+        0.0, h - 1.0)
+    x0f, y0f = torch.floor(sx), torch.floor(sy)
+    wx, wy = (sx - x0f)[..., None], (sy - y0f)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    r0 = ((y0 * w + x0) * c).reshape(b, -1, 1)          # the upper run
+    dx = ((x0 + 1 < w).long() * c).reshape(b, -1, 1)    # 0 at the right border
+    r1 = r0 + ((y0 + 1 < h).long() * (w * c)).reshape(b, -1, 1)
+    ch = torch.arange(c, device=image.device)
+    flat = image.float().reshape(b, h * w * c)
+
+    def run(idx):
+        return torch.gather(flat, 1, idx.reshape(b, -1)).reshape(b, h, w, c)
+
+    v00, v10 = run(r0 + ch), run(r0 + dx + ch)
+    v01, v11 = run(r1 + ch), run(r1 + dx + ch)
+    top = v00 * (1.0 - wx) + v10 * wx
+    bot = v01 * (1.0 - wx) + v11 * wx
+    out = top * (1.0 - wy) + bot * wy
+    if mask is not None:
+        out = out * mask.float()
+    return out.to(image.dtype)
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_inputs(image, flow, mask):
+    """[B, H, W, C] of the image, or ValueError saying which input the
+    kernels do not take. The messages are made only when a check fails:
+    this runs before every launch."""
+    req = hopper.require
+    req(image.dim() == 4,
+        lambda: f"image must be [B,H,W,C], got {tuple(image.shape)}")
+    b, h, w, c = image.shape
+    req(image.dtype in _DTYPES,
+        lambda: f"image dtype {image.dtype} not float32/bfloat16")
     req(flow.shape == (b, h, w, 2) and flow.dtype == torch.float32,
-        f"flow must be float32 [{b},{h},{w},2], got {flow.dtype} "
+        lambda: f"flow must be float32 [{b},{h},{w},2], got {flow.dtype} "
         f"{tuple(flow.shape)}")
-    tensors = [image, flow]
+    req(flow.device == image.device, "all inputs must be on one device")
+    req(image.is_contiguous() and flow.is_contiguous(),
+        "inputs must be contiguous")
     if mask is not None:
         req(mask.shape == (b, h, w, 1) and mask.dtype == torch.float32,
-            f"mask must be float32 [{b},{h},{w},1], got {mask.dtype} "
+            lambda: f"mask must be float32 [{b},{h},{w},1], got {mask.dtype} "
             f"{tuple(mask.shape)}")
-        tensors.append(mask)
-    for t in tensors:
-        req(t.device == image.device, "all inputs must be on one device")
-        req(t.is_contiguous(), "inputs must be contiguous")
+        req(mask.device == image.device, "all inputs must be on one device")
+        req(mask.is_contiguous(), "inputs must be contiguous")
     return b, h, w, c
 
 
-def _launch(image, flow, mask):
+def _launch(image, flow, mask, route: Optional[str] = None):
+    """The forward on the card. ``route`` overrides :func:`resample_route`,
+    to test a route by name; a route that does not take the shape makes the
+    launch fail, and that raises."""
     b, h, w, c = _check_inputs(image, flow, mask)
     out = torch.empty_like(image)
     if out.numel() == 0:
         return out
+    if route is None:
+        aligned = (image.data_ptr() | flow.data_ptr()
+                   | out.data_ptr()) % 16 == 0
+        route = resample_route(image.dtype, (b, h, w, c), aligned)
     kernel, fn = ((RESAMPLE_F32, "c2m_resample_f32")
                   if image.dtype == torch.float32
                   else (RESAMPLE_BF16, "c2m_resample_bf16"))
     err = getattr(hopper.library(), fn)(
         image.data_ptr(), flow.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        b, h, w, c, int(mask is not None), hopper.stream_ptr(image))
+        b, h, w, c, int(mask is not None), ROUTES[route],
+        hopper.stream_ptr(image))
     hopper.check(err, fn)
     kernel.launches += 1
     return out
@@ -154,7 +244,11 @@ def _dispatch(image, flow, mask):
         return resample_plain(image, flow, mask)
     if image.device.type != "cuda":
         raise ValueError(f"resample: no kernel for device {image.device}")
-    return _ResampleCuda.apply(image, flow, mask)
+    if torch.is_grad_enabled() and (
+            image.requires_grad or flow.requires_grad
+            or (mask is not None and mask.requires_grad)):
+        return _ResampleCuda.apply(image, flow, mask)
+    return _launch(image, flow, mask)        # serving: nothing to record
 
 
 def resample(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,14 @@ Phases (any failure raises and the script exits non-zero):
      against autograd of the plain version, with median times (CUDA events,
      after warm-up), the least time the card could take (bound) and, where
      one PyTorch call computes the same function (F.grid_sample for K1),
-     that call's time. K3 is also held against K2 on the same inputs, for
+     that call's time. K1 forward and K4 are held and timed on two kinds of
+     flow: independent noise per pixel (the row of record) and a smooth flow
+     as a request's dense flow looks; their times are given twice, around
+     one call (the wrapper's host time included, as for every kernel) and
+     for the device alone (a CUDA graph of 20 launches). Both also run once
+     at what the paths never give them (every route of K1, unaligned views,
+     1-wide images; K4 at flows longer than its halo, ragged sizes, NaN and
+     far-out coordinates). K3 is also held against K2 on the same inputs, for
      GT-like, GNN-like and window-overflowing thetas, and each of the two
      is timed at the other's shapes as well;
   4. a ServingModel at the journal config's full width
@@ -137,6 +144,20 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Median milliseconds of one call on the device alone: ``launches``
+    calls recorded into one CUDA graph and replayed, so that the host's time
+    to reach the launch (checks, allocation, ctypes) is not in it. For the
+    shapes whose kernel is shorter than that host time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, reps=reps, warmup=1) / launches
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -179,6 +200,125 @@ def grid_of(flow: torch.Tensor) -> torch.Tensor:
     return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], dim=-1)
 
 
+def smooth_flow(g, b, h, w, dev, px: float = 8.0) -> torch.Tensor:
+    """A flow as a request's dense flow looks: noise of +-px pixels at 1/16
+    of the resolution, bilinearly enlarged to [b, h, w, 2]."""
+    import torch.nn.functional as F
+    low = (torch.rand(b, 2, max(2, h // 16), max(2, w // 16), generator=g)
+           - 0.5) * 2 * px
+    return F.interpolate(low.to(dev), size=(h, w), mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1).contiguous()
+
+
+def grid_coords(flow: torch.Tensor) -> torch.Tensor:
+    """The pixel grid plus flow [b, h, w, 2]: K4's target coordinates."""
+    _, h, w, _ = flow.shape
+    xs = torch.arange(w, device=flow.device, dtype=torch.float32)
+    ys = torch.arange(h, device=flow.device, dtype=torch.float32)
+    base = torch.stack([xs[None].expand(h, w), ys[:, None].expand(h, w)], -1)
+    return (base[None] + flow).contiguous()
+
+
+def splat_check(sk, splat, coords, piled: bool = False):
+    """K4 against its plain version on coords: (max |diff|, share of
+    0.5-threshold flips, the largest mass, the kernel's output, the two
+    callables). TOL_SPLAT is absolute and was set for the masses that
+    independent noise leaves, up to ~4: about 20 float32 steps there.
+    ``piled``: a smooth flow piles tens of points onto a pixel where it
+    converges, and a float32 sum added in another order differs by steps of
+    its own size; a pixel of mass m above 4 is then held to the same number
+    of steps, TOL_SPLAT * m / 4. The difference returned is absolute either
+    way."""
+    run = lambda: sk.corresponding_map(coords)                  # noqa: E731
+    plain = lambda: sk.corresponding_map_plain(coords)          # noqa: E731
+    got, want = run(), plain()
+    diff = (got - want).abs()
+    tol = torch.full_like(want, TOL_SPLAT)
+    if piled:
+        tol = tol * (want / 4.0).clamp(min=1.0)
+    flips = (splat.clip_mask(got.clamp(0, 1))
+             != splat.clip_mask(want.clamp(0, 1))).float().mean().item()
+    err, mass = diff.max().item(), want.max().item()
+    check(bool((diff <= tol).all()) and flips <= TOL_FLIP,
+          f"splat {list(coords.shape)}: max|diff| {err} at masses up to "
+          f"{mass} / flips {flips} over tolerance")
+    return err, flips, mass, got, run, plain
+
+
+def odd_cases(dev, g):
+    """K1 forward and K4 once (untimed) at what the paths never give them:
+    every route of K1 (channel counts that do and do not fill 16 bytes,
+    1-wide and 1-high images, a view that is not 16-byte aligned), exact
+    against the plain version in both types; K4 at flows longer than the
+    halo, sizes that are no multiple of the tile or of 4, NaN, infinite and
+    far-out coordinates, and coordinates that are not 8-byte aligned."""
+    from c2m_tpu_torch.ops import splat
+    from c2m_tpu_torch.ops.hopper import splat_kernel as sk
+    from c2m_tpu_torch.ops.hopper import warp_kernels as wk
+    seen = set()
+    shapes = [(2, 17, 33, c) for c in (1, 2, 3, 4, 5, 8, 12, 64, 72, 256, 512)]
+    shapes += [(2, 6, 1, 3), (2, 1, 9, 3), (3, 1, 1, 8), (2, 5, 1, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            for aligned in (True, False):
+                n = int(np.prod(shape))
+                buf = torch.rand(n + 1, generator=g).to(dtype).to(dev)
+                img = buf[0 if aligned else 1:][:n].view(shape)
+                flow = ((torch.rand(*shape[:3], 2, generator=g) - 0.5) * 16
+                        ).to(dev)
+                mask = torch.rand(*shape[:3], 1, generator=g).to(dev)
+                check(img.is_contiguous()
+                      and (img.data_ptr() % 16 == 0) == aligned, "odd view")
+                seen.add(wk.resample_route(dtype, shape, aligned))
+                for m in (None, mask):
+                    got = (wk.resample(img, flow) if m is None
+                           else wk.resample_masked(img, flow, m))
+                    want = wk.resample_plain(img, flow, m)
+                    err = (got.float() - want.float()).abs().max().item()
+                    check(err == 0.0, f"K1 {dtype} {shape} aligned={aligned} "
+                          f"masked={m is not None}: max|diff| {err} != 0")
+    # every route by name on one shape each takes, the 64-bit one included
+    img = torch.rand(2, 17, 33, 4, generator=g).to(dev)
+    flow = ((torch.rand(2, 17, 33, 2, generator=g) - 0.5) * 16).to(dev)
+    want = wk.resample_plain(img, flow, None)
+    for route in wk.ROUTES:
+        check(torch.equal(wk._launch(img, flow, None, route), want),
+              f"K1 route {route} differs from the plain version")
+    check(seen == {"vec", "pixel", "scalar"}, f"K1 routes seen: {seen}")
+    log(f"  K1 forward, {len(shapes)} odd shapes x 2 types x (un)aligned x "
+        f"(un)masked and each of the routes {sorted(wk.ROUTES)} by name: "
+        f"max|diff| 0")
+
+    tw, th = sk.TILE
+    for b, h, w, px in ((2, 50, 70, 3.0), (2, 50, 70, 4.0 * sk.HALO),
+                        (1, th + 1, tw + 4, 10.0), (3, 2 * th, 2 * tw, 40.0),
+                        (2, 7, 5, 2.0)):
+        flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 2 * px).to(dev)
+        coords = grid_coords(flow)
+        splat_check(sk, splat, coords)
+        # coordinates that add nothing, whatever they hold
+        clean = sk.corresponding_map(coords)
+        dirty = coords.clone()
+        dirty[0, 3, 4] = float("nan")
+        dirty[0, 5, 3, 0] = float("inf")
+        dirty[0, 6, 2, 1] = -1e30
+        dirty[-1, 2, 1] = torch.tensor([3e9, 1.0], device=dev)
+        lost = coords.clone()
+        for bi, y, x in ((0, 3, 4), (0, 5, 3), (0, 6, 2), (b - 1, 2, 1)):
+            lost[bi, y, x] = -5.0                # off the image: adds nothing
+        err = (sk.corresponding_map(dirty)
+               - sk.corresponding_map(lost)).abs().max().item()
+        check(err <= TOL_SPLAT and bool(torch.isfinite(clean).all()),
+              f"K4 [{b},{h},{w}]: NaN / infinite / far coordinates added "
+              f"{err}")
+        buf = torch.zeros(coords.numel() + 1, device=dev)
+        odd = buf[1:].view(coords.shape).copy_(coords)
+        check(odd.data_ptr() % 8 != 0, "odd view")
+        splat_check(sk, splat, odd)
+    log("  K4, flows shorter and longer than the halo, ragged sizes, NaN / "
+        "infinite / far-out and unaligned coordinates: within tolerance")
+
+
 def phase_kernels(dev):
     """Phase 3: kernel vs plain version at the two paths' shapes."""
     import torch.nn.functional as F
@@ -198,30 +338,53 @@ def phase_kernels(dev):
         mask = torch.rand(b, h, w, 1, generator=g).to(dev) if masked else None
         return img, flow, mask
 
-    def resample_case(kernel, dtype, shape, masked, role):
-        img, flow, mask = inputs(dtype, shape, masked)
-        if masked:
+    def resample_fns(img, flow, mask):
+        """The kernel, its plain version and the library call (yardstick
+        only, the port never calls it: the warp without the mask product,
+        grid and NCHW view made beforehand) on one set of inputs."""
+        if mask is not None:
             run = lambda: wk.resample_masked(img, flow, mask)   # noqa: E731
         else:
             run = lambda: wk.resample(img, flow)                # noqa: E731
         plain = lambda: wk.resample_plain(img, flow, mask)      # noqa: E731
-        # the library call (yardstick only, the port never calls it): the
-        # warp without the mask product, grid and NCHW view made beforehand
-        grid, nchw = grid_of(flow), img.permute(0, 3, 1, 2)
-        lib = lambda: F.grid_sample(nchw, grid.to(dtype), mode="bilinear",  # noqa: E731
+        grid, nchw = grid_of(flow).to(img.dtype), img.permute(0, 3, 1, 2)
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear",  # noqa: E731
                                     padding_mode="border", align_corners=False)
+        return run, plain, lib
+
+    def resample_case(kernel, dtype, shape, masked, role):
+        img, flow, mask = inputs(dtype, shape, masked)
+        run, plain, lib = resample_fns(img, flow, mask)
         err = (run().float() - plain().float()).abs().max().item()
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
+        # the same image and mask under a smooth flow, as a request's dense
+        # flow looks (the noise above stays the row of record)
+        s_run, s_plain, s_lib = resample_fns(
+            img, smooth_flow(g, shape[0], shape[1], shape[2], dev), mask)
+        s_err = (s_run().float() - s_plain().float()).abs().max().item()
+        smooth = {"max_abs_err": s_err, "ms": time_ms(s_run),
+                  "library_ms": time_ms(s_lib), "device_ms": device_ms(s_run),
+                  "library_device_ms": device_ms(s_lib)}
+        dev_ms, lib_dev_ms = device_ms(run), device_ms(lib)
         pix, n = img.numel() // shape[3], img.numel()
         bd = bound(nbytes(img, flow, mask) + nbytes(img), 16 * pix + 10 * n)
-        log(f"  {kernel.name} {role} {list(shape)} masked={masked}: "
+        log(f"  {kernel.name} {role} {list(shape)} masked={masked} route "
+            f"{wk.resample_route(dtype, shape)}: "
             f"max|diff| {err:.3g} (tol {tol:.3g})  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms  grid_sample {lib_ms:.4f} ms  bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-        check(err <= tol, f"{kernel.name} {shape}: max|diff| {err} > {tol}")
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  device alone: "
+            f"kernel {dev_ms:.4f}  grid_sample {lib_dev_ms:.4f};  smooth "
+            f"flow: max|diff| {s_err:.3g}  kernel {smooth['ms']:.4f} ms  "
+            f"grid_sample {smooth['library_ms']:.4f} ms  device alone: "
+            f"kernel {smooth['device_ms']:.4f}  grid_sample "
+            f"{smooth['library_device_ms']:.4f}")
+        check(err <= tol and s_err <= tol,
+              f"{kernel.name} {shape}: max|diff| {err}, {s_err} > {tol}")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "shape": list(shape), **bd}
+                "library_ms": lib_ms, "device_ms": dev_ms,
+                "library_device_ms": lib_dev_ms, "shape": list(shape), **bd,
+                "smooth": smooth}
 
     def backward_case(kernel, dtype, shape, masked, needs, role):
         """K1's gradients (needs: which of image, flow, mask) against
@@ -295,15 +458,20 @@ def phase_kernels(dev):
                 "err": "max |diff| over the largest reference gradient", **bd}
 
     log("[phase 3] kernels vs plain versions on the card")
-    for shape in [(60, 32, 64, 64), (60, 16, 32, 128), (60, 8, 16, 256),
-                  (60, 4, 8, 512)]:
-        resample_case(wk.RESAMPLE_BF16, torch.bfloat16, shape, True,
-                      "decoder skip")
-        resample_case(wk.RESAMPLE_F32, torch.float32, shape, True,
+    odd_cases(dev, g)
+    # the journal config's four decoder skips: with the bottleneck, the five
+    # bf16 launches of a request (60 folded frames) or a step (15)
+    skips = [(32, 64, 64), (16, 32, 128), (8, 16, 256), (4, 8, 512)]
+    serving_skips = [
+        resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (60, *hwc), True,
+                      "decoder skip") for hwc in skips]
+    for hwc in skips:
+        resample_case(wk.RESAMPLE_F32, torch.float32, (60, *hwc), True,
                       "decoder skip")
     rows["resample_bf16"] = resample_case(
         wk.RESAMPLE_BF16, torch.bfloat16, (60, 16, 32, 256), True,
         "generator bottleneck")
+    rows["resample_bf16"]["serving_skips"] = serving_skips
     resample_case(wk.RESAMPLE_F32, torch.float32, (60, 16, 32, 256), True,
                   "generator bottleneck")
     rows["resample_f32"] = resample_case(
@@ -311,10 +479,9 @@ def phase_kernels(dev):
 
     # K1 forward at the train step's shapes (batch 3 x 5 frames folded)
     train = {}
-    for shape in [(15, 32, 64, 64), (15, 16, 32, 128), (15, 8, 16, 256),
-                  (15, 4, 8, 512)]:
-        resample_case(wk.RESAMPLE_BF16, torch.bfloat16, shape, True,
-                      "train decoder skip")
+    rows["resample_bf16"]["train_skips"] = [
+        resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (15, *hwc), True,
+                      "train decoder skip") for hwc in skips]
     train["resample_bf16"] = resample_case(
         wk.RESAMPLE_BF16, torch.bfloat16, (15, 16, 32, 256), True,
         "train generator bottleneck")
@@ -385,29 +552,32 @@ def phase_kernels(dev):
                 "err": "winner mismatch fraction", **bd}
 
     def splat_case(b, role, h=128, w=256):
-        """K4 at [b, h, w, 2] coords (base grid + a +-10 px flow)."""
+        """K4 at [b, h, w, 2] coords: the base grid plus a +-10 px flow of
+        independent noise (the row of record), then plus a smooth flow."""
         flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 20).to(dev)
-        xs = torch.arange(w, device=dev, dtype=torch.float32)
-        ys = torch.arange(h, device=dev, dtype=torch.float32)
-        base = torch.stack([xs[None].expand(h, w), ys[:, None].expand(h, w)], -1)
-        coords = (base[None] + flow).contiguous()
-        run = lambda: sk.corresponding_map(coords)              # noqa: E731
-        plain = lambda: sk.corresponding_map_plain(coords)      # noqa: E731
-        got, want = run(), plain()
-        err = (got - want).abs().max().item()
-        flips = (splat.clip_mask(got.clamp(0, 1))
-                 != splat.clip_mask(want.clamp(0, 1))).float().mean().item()
+        err, flips, mass, got, run, plain = splat_check(
+            sk, splat, grid_coords(flow))
         ms, plain_ms = time_ms(run), time_ms(plain)
-        bd = bound(nbytes(coords, got), 14 * got.numel())
+        s_err, s_flips, s_mass, _, s_run, _ = splat_check(
+            sk, splat, grid_coords(smooth_flow(g, b, h, w, dev)), piled=True)
+        smooth = {"max_abs_err": s_err, "flips": s_flips, "max_mass": s_mass,
+                  "ms": time_ms(s_run), "device_ms": device_ms(s_run),
+                  "tol": f"{TOL_SPLAT} x max(1, mass / 4)"}
+        dev_ms = device_ms(run)
+        bd = bound(nbytes(flow, got), 14 * got.numel())
         log(f"  corresponding_map {role} [{b},{h},{w},2]: max|diff| {err:.3g} "
-            f"(tol {TOL_SPLAT}), 0.5-threshold flips {flips:.3g} (tol "
+            f"(tol {TOL_SPLAT}, masses up to {mass:.3g}), 0.5-threshold flips "
+            f"{flips:.3g} (tol "
             f"{TOL_FLIP})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
-            f"call")
-        check(err <= TOL_SPLAT and flips <= TOL_FLIP,
-              f"splat max|diff| {err} / flips {flips} over tolerance")
+            f"call  device alone: {dev_ms:.4f};  smooth flow: max|diff| "
+            f"{s_err:.3g} at masses up to {s_mass:.3g} (tol {TOL_SPLAT} x "
+            f"max(1, mass / 4)), flips {s_flips:.3g}  kernel "
+            f"{smooth['ms']:.4f} ms  device alone: {smooth['device_ms']:.4f}")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "shape": [b, h, w, 2], "flips": flips, **bd}
+                "library_ms": None, "device_ms": dev_ms,
+                "shape": [b, h, w, 2], "flips": flips, "max_mass": mass, **bd,
+                "smooth": smooth}
 
     def banded_case(b, kind):
         """K3 at [b, 24, 512, 1024] x [b, 24, 10, 6] against the plain winner

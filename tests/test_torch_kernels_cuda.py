@@ -24,9 +24,14 @@ from c2m_tpu_torch.ops.hopper import warp_kernels as wk
 pytestmark = pytest.mark.cuda
 
 # (B, H, W, C): odd small shapes, the decoder skips, the generator
-# bottleneck, the previews
+# bottleneck, the previews; then every route of the forward: channel counts
+# that do and do not fill 16 bytes, 1-wide and 1-high images
 RESAMPLE_SHAPES = [(2, 17, 33, 5), (60, 32, 64, 64), (60, 16, 32, 128),
                    (60, 8, 16, 256), (60, 4, 8, 512), (60, 128, 256, 3)]
+RESAMPLE_SHAPES += [(2, 17, 33, c) for c in (1, 2, 3, 4, 8, 12, 64, 72, 256,
+                                             512)]
+RESAMPLE_SHAPES += [(2, 6, 1, 3), (2, 1, 9, 3), (3, 1, 1, 8), (2, 5, 1, 64),
+                    (1, 1, 70, 1)]
 
 
 @pytest.fixture(scope="module")
@@ -60,18 +65,56 @@ def test_resample_kernel_matches_plain(dev, shape, masked, dtype):
     assert (wk.RESAMPLE_F32 if dtype == torch.float32
             else wk.RESAMPLE_BF16).launches == before + 1
     assert got.dtype == dtype and got.shape == img.shape
-    # float32: same float ops, only contraction differs in the plain
-    # version's CUDA ops -> 1e-5; bfloat16: one rounding of the same float32
-    # result, so at most one bf16 ulp (2^-8 of values in [0, 1])
-    atol = 1e-5 if dtype == torch.float32 else 2 ** -8
-    assert (got.float() - want.float()).abs().max().item() <= atol
+    # the same float32 operations term for term, built without contraction:
+    # equal bit for bit; bfloat16 is one rounding of that float32 value
+    assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shape", [(3, 16, 40), (60, 128, 256)])
-def test_splat_kernel_matches_plain(dev, shape):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 33, 3), (2, 17, 33, 8),
+                                   (2, 17, 33, 64), (2, 9, 5, 5)])
+def test_resample_kernel_on_an_unaligned_view(dev, shape, dtype):
+    """A contiguous view whose data_ptr() is not 16-byte aligned takes the
+    route of scalar loads and gives the same bits."""
+    g = _gen(8)
+    n = int(np.prod(shape))
+    img = torch.rand(n + 1, generator=g).to(dtype).to(dev)[1:].view(shape)
+    flow = ((torch.rand(*shape[:3], 2, generator=g) - 0.5) * 16).to(dev)
+    mask = torch.rand(*shape[:3], 1, generator=g).to(dev)
+    assert img.is_contiguous() and img.data_ptr() % 16 != 0
+    assert torch.equal(wk.resample_masked(img, flow, mask),
+                       wk.resample_plain(img, flow, mask))
+    assert torch.equal(wk.resample(img, flow), wk.resample_plain(img, flow))
+
+
+@pytest.mark.parametrize("route", sorted(wk.ROUTES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resample_every_route_by_name(dev, dtype, route):
+    """Each kernel of csrc/resample.cu on a shape they all take."""
+    c = 4 if dtype == torch.float32 else 8
+    if route == "pixel":
+        c = 3
+    g = _gen(9)
+    img = torch.rand(3, 19, 35, c, generator=g).to(dtype).to(dev)
+    flow = ((torch.rand(3, 19, 35, 2, generator=g) - 0.5) * 16).to(dev)
+    mask = torch.rand(3, 19, 35, 1, generator=g).to(dev)
+    assert torch.equal(wk._launch(img, flow, mask, route),
+                       wk.resample_plain(img, flow, mask))
+    if route == "vec":
+        with pytest.raises(RuntimeError):      # a shape the route cannot take
+            wk._launch(img[..., :3].contiguous(), flow, mask, route)
+
+
+# (B, H, W, largest |flow|): the serving shape; flows shorter and longer than
+# the halo; H and W that are no multiple of the tile, of 4, or of anything
+@pytest.mark.parametrize("shape,px", [
+    ((3, 16, 40), 10.0), ((60, 128, 256), 10.0), ((2, 50, 70), 3.0),
+    ((2, 50, 70), 4.0 * sk.HALO), ((3, 2 * sk.TILE[1], 2 * sk.TILE[0]), 40.0),
+    ((1, sk.TILE[1] + 1, sk.TILE[0] + 4), 10.0), ((2, 7, 5), 2.0)])
+def test_splat_kernel_matches_plain(dev, shape, px):
     b, h, w = shape
     g = _gen(2)
-    flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 20).to(dev)
+    flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 2 * px).to(dev)
     xs = torch.arange(w, device=dev, dtype=torch.float32)
     ys = torch.arange(h, device=dev, dtype=torch.float32)
     base = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], -1)
@@ -84,6 +127,35 @@ def test_splat_kernel_matches_plain(dev, shape):
     flips = (splat.clip_mask(got.clamp(0, 1))
              != splat.clip_mask(want.clamp(0, 1))).float().mean().item()
     assert flips <= 1e-4
+
+
+def test_splat_kernel_nan_and_far_coordinates_add_nothing(dev):
+    """NaN, infinite and far-out coordinates add no mass and touch nothing;
+    coordinates that are not 8-byte aligned load as scalars."""
+    g = _gen(3)
+    b, h, w = 2, 50, 72
+    flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 6).to(dev)
+    xs = torch.arange(w, device=dev, dtype=torch.float32)
+    ys = torch.arange(h, device=dev, dtype=torch.float32)
+    base = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], -1)
+    coords = (base[None] + flow).contiguous()
+    dirty, lost = coords.clone(), coords.clone()
+    dirty[0, 3, 4] = float("nan")
+    dirty[0, 5, 60, 0] = float("inf")
+    dirty[1, 49, 0, 1] = -1e30
+    dirty[1, 20, 71] = torch.tensor([3e9, 1.0], device=dev)
+    for bi, y, x in ((0, 3, 4), (0, 5, 60), (1, 49, 0), (1, 20, 71)):
+        lost[bi, y, x] = -5.0                      # off the image
+    got = sk.corresponding_map(dirty)
+    want = sk.corresponding_map_plain(lost)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5
+    odd = torch.zeros(coords.numel() + 1, device=dev)[1:].view(coords.shape)
+    odd.copy_(coords)
+    assert odd.data_ptr() % 8 != 0
+    assert (sk.corresponding_map(odd)
+            - sk.corresponding_map_plain(coords)).abs().max().item() <= 1e-5
 
 
 def _raster_inputs(b, n, t, h, w, seed):
