@@ -42,6 +42,12 @@
 //   route 3 "scalar64" the first version: 64-bit indices, plain divisions,
 //                    for tensors of 2^31 elements and more.
 //
+// Frames per image: the image holds B / frames rows and output row i reads
+// image row i / frames (flow, mask and output hold B rows), so a caller that
+// warps one image into T frames passes it once instead of T copies. Only
+// the image's base offset depends on it, in every route (one more
+// multiply-high division per pixel, by a divisor prepared on the host).
+//
 // The wrapper (c2m_tpu_torch/ops/hopper/warp_kernels.py, resample_route)
 // picks the route; routes 1-2 need B*H*W < 2^31 and H*W*C < 2^31 (32-bit
 // offsets inside an image, a 64-bit base per image), route 0 B*H*W*C < 2^31.
@@ -175,8 +181,8 @@ __global__ void resample_vec_kernel(const T* __restrict__ img,
                                     const float* __restrict__ mask,
                                     T* __restrict__ out, unsigned npix,
                                     unsigned H, unsigned W, unsigned chunks,
-                                    FastDiv divW, FastDiv divH, float wf,
-                                    float hf, int masked) {
+                                    FastDiv divW, FastDiv divH, FastDiv divF,
+                                    float wf, float hf, int masked) {
   constexpr int N = Chunk<T>::N;
   unsigned pix = blockIdx.x * blockDim.y + threadIdx.y;
   if (pix >= npix) return;
@@ -188,7 +194,7 @@ __global__ void resample_vec_kernel(const T* __restrict__ img,
   float m = masked ? mask[pix] : 1.0f;
   Taps t = taps_of(f.x, f.y, x, y, H, W, wf, hf);
   const uint4* r0 = reinterpret_cast<const uint4*>(img)
-      + ((size_t)b * H * W + t.p00) * chunks;
+      + ((size_t)divF.div(b) * H * W + t.p00) * chunks;
   const uint4* r1 = r0 + t.dy * chunks;
   unsigned dx = t.dx * chunks;
   uint4* o = reinterpret_cast<uint4*>(out) + (size_t)pix * chunks;
@@ -225,8 +231,8 @@ __global__ void resample_pixel_kernel(const T* __restrict__ img,
                                       const float* __restrict__ mask,
                                       T* __restrict__ out, unsigned npix,
                                       unsigned H, unsigned W, FastDiv divW,
-                                      FastDiv divH, float wf, float hf,
-                                      int masked) {
+                                      FastDiv divH, FastDiv divF, float wf,
+                                      float hf, int masked) {
   const unsigned FULL = 0xffffffffu;
   unsigned lane = threadIdx.x & 31u;
   unsigned first = blockIdx.x * PIXEL_THREADS + (threadIdx.x & ~31u);
@@ -240,7 +246,7 @@ __global__ void resample_pixel_kernel(const T* __restrict__ img,
   float2 f = flow[live];
   float m = masked ? mask[live] : 1.0f;
   Taps t = taps_of(f.x, f.y, x, y, H, W, wf, hf);
-  unsigned p00 = b * H * W + t.p00;        // in pixels of the whole tensor
+  unsigned p00 = divF.div(b) * H * W + t.p00;   // in pixels of the image
   unsigned steps = t.dx | (t.dy ? 2u : 0u);
   unsigned left = npix - first;            // pixels of this warp
   unsigned n = (left < 32u ? left : 32u) * C;
@@ -273,8 +279,8 @@ __global__ void resample_scalar_kernel(const T* __restrict__ img,
                                        T* __restrict__ out, unsigned total,
                                        unsigned H, unsigned W, unsigned C,
                                        FastDiv divC, FastDiv divW,
-                                       FastDiv divH, float wf, float hf,
-                                       int masked) {
+                                       FastDiv divH, FastDiv divF, float wf,
+                                       float hf, int masked) {
   unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   unsigned pix = divC.div(i);
@@ -284,7 +290,7 @@ __global__ void resample_scalar_kernel(const T* __restrict__ img,
   unsigned b = divH.div(row);
   unsigned y = row - b * H;
   Taps t = taps_of(flow[2 * pix], flow[2 * pix + 1], x, y, H, W, wf, hf);
-  const T* r0 = img + (b * H * W + t.p00) * C + c;
+  const T* r0 = img + (divF.div(b) * H * W + t.p00) * C + c;
   const T* r1 = r0 + t.dy * C;
   unsigned dx = t.dx * C;
   float res = blend(to_f(r0[0]), to_f(r0[dx]), to_f(r1[0]), to_f(r1[dx]),
@@ -300,7 +306,8 @@ __global__ void resample_scalar64_kernel(const T* __restrict__ img,
                                          const float* __restrict__ mask,
                                          T* __restrict__ out, long long B,
                                          long long H, long long W, long long C,
-                                         float wf, float hf, int masked) {
+                                         long long frames, float wf, float hf,
+                                         int masked) {
   long long total = B * H * W * C;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
@@ -317,7 +324,7 @@ __global__ void resample_scalar64_kernel(const T* __restrict__ img,
     float wx = sx - x0f, wy = sy - y0f;
     long long x0 = (long long)x0f, y0 = (long long)y0f;
     long long x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    const T* base = img + b * H * W * C + c;
+    const T* base = img + (b / frames) * H * W * C + c;
     float res = blend(to_f(base[(y0 * W + x0) * C]),
                       to_f(base[(y0 * W + x1) * C]),
                       to_f(base[(y1 * W + x0) * C]),
@@ -331,8 +338,8 @@ enum Route { SCALAR = 0, VEC = 1, PIXEL = 2, SCALAR64 = 3 };
 
 template <typename T>
 int launch(const void* img_, const void* flow_, const void* mask_, void* out_,
-           long long B, long long H, long long W, long long C, int masked,
-           int route, cudaStream_t stream) {
+           long long B, long long H, long long W, long long C,
+           long long frames, int masked, int route, cudaStream_t stream) {
   // the same float the plain version uses: double quotient rounded once
   double dw = W - 1.0 < 1e-6 ? 1e-6 : W - 1.0;
   double dh = H - 1.0 < 1e-6 ? 1e-6 : H - 1.0;
@@ -342,11 +349,12 @@ int launch(const void* img_, const void* flow_, const void* mask_, void* out_,
   const float* mask = static_cast<const float*>(mask_);
   T* out = static_cast<T*>(out_);
   long long total = B * H * W * C;
+  if (frames < 1 || B % frames != 0) return (int)cudaErrorInvalidValue;
   if (route == SCALAR64) {
     long long blocks = (total + 255) / 256;
     if (blocks > 132LL * 64) blocks = 132LL * 64;   // grid-stride beyond this
     resample_scalar64_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-        img, flow, mask, out, B, H, W, C, wf, hf, masked);
+        img, flow, mask, out, B, H, W, C, frames, wf, hf, masked);
     return (int)cudaGetLastError();
   }
   if (route == SCALAR) {
@@ -355,13 +363,14 @@ int launch(const void* img_, const void* flow_, const void* mask_, void* out_,
                                 stream>>>(
         img, flow, mask, out, (unsigned)total, (unsigned)H, (unsigned)W,
         (unsigned)C, fast_div((unsigned)C), fast_div((unsigned)W),
-        fast_div((unsigned)H), wf, hf, masked);
+        fast_div((unsigned)H), fast_div((unsigned)frames), wf, hf, masked);
     return (int)cudaGetLastError();
   }
   if (B * H * W >= (1LL << 31) || H * W * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   unsigned npix = (unsigned)(B * H * W);
   FastDiv dW = fast_div((unsigned)W), dH = fast_div((unsigned)H);
+  FastDiv dF = fast_div((unsigned)frames);
   const float2* flow2 = static_cast<const float2*>(flow_);
   if (route == VEC) {
     constexpr int N = Chunk<T>::N;
@@ -373,7 +382,7 @@ int launch(const void* img_, const void* flow_, const void* mask_, void* out_,
     unsigned blocks = (npix + rows - 1) / rows;
     resample_vec_kernel<T><<<blocks, block, 0, stream>>>(
         img, flow2, mask, out, npix, (unsigned)H, (unsigned)W, chunks, dW, dH,
-        wf, hf, masked);
+        dF, wf, hf, masked);
     return (int)cudaGetLastError();
   }
   if (route != PIXEL) return (int)cudaErrorInvalidValue;
@@ -381,8 +390,8 @@ int launch(const void* img_, const void* flow_, const void* mask_, void* out_,
 #define C2M_PIXEL(CC)                                                        \
   case CC:                                                                   \
     resample_pixel_kernel<T, CC><<<blocks, PIXEL_THREADS, 0, stream>>>(      \
-        img, flow2, mask, out, npix, (unsigned)H, (unsigned)W, dW, dH, wf,   \
-        hf, masked);                                                         \
+        img, flow2, mask, out, npix, (unsigned)H, (unsigned)W, dW, dH, dF,   \
+        wf, hf, masked);                                                     \
     break;
   switch (C) {
     C2M_PIXEL(1) C2M_PIXEL(2) C2M_PIXEL(3) C2M_PIXEL(4)
@@ -397,15 +406,18 @@ int launch(const void* img_, const void* flow_, const void* mask_, void* out_,
 extern "C" int c2m_resample_f32(const void* img, const void* flow,
                                 const void* mask, void* out, long long B,
                                 long long H, long long W, long long C,
-                                int masked, int route, void* stream) {
-  return launch<float>(img, flow, mask, out, B, H, W, C, masked, route,
+                                long long frames, int masked, int route,
+                                void* stream) {
+  return launch<float>(img, flow, mask, out, B, H, W, C, frames, masked, route,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int c2m_resample_bf16(const void* img, const void* flow,
                                  const void* mask, void* out, long long B,
                                  long long H, long long W, long long C,
-                                 int masked, int route, void* stream) {
-  return launch<__nv_bfloat16>(img, flow, mask, out, B, H, W, C, masked, route,
+                                 long long frames, int masked, int route,
+                                 void* stream) {
+  return launch<__nv_bfloat16>(img, flow, mask, out, B, H, W, C, frames,
+                               masked, route,
                                static_cast<cudaStream_t>(stream));
 }

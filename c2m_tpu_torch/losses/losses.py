@@ -197,9 +197,10 @@ def training_losses(tp, batch: Dict[str, torch.Tensor],
 
     b = source_frame.shape[0]
     src_rep = source_frame[:, None].expand(b, tpred, *source_frame.shape[1:])
-    src_flat = src_rep.reshape(b * tpred, *source_frame.shape[1:]).contiguous()
     flow_flat = fold_time(out["dense_motion_bw"])[0].float().contiguous()
-    warped = resample(src_flat, flow_flat).reshape(target_frames.shape)
+    # the source frame once for its T warps (K1's frames per image)
+    warped = resample(source_frame.contiguous(), flow_flat,
+                      frames=tpred).reshape(target_frames.shape)
     loss["warped"] = l1_masked(warped, target_frames)
 
     if w.flow_smooth > 0:

@@ -236,13 +236,11 @@ class C2MGenerator(nn.Module):
         """Sparse-warp previews (model.py:203-211), through K1."""
         tp = self.cfg.train_params
         tpred = tp.num_predicted_frames
-        src = batch["video"][:, tp.num_input_frames - 1]
-        b = src.shape[0]
-        src_rep = src[:, None].expand(b, tpred, *src.shape[1:]).reshape(
-            b * tpred, *src.shape[1:]).contiguous()
+        src = batch["video"][:, tp.num_input_frames - 1].contiguous()
         sm, _ = fold_time(out["sparse_motion_bw"])
         with torch.no_grad():                      # previews carry no gradient
-            warped = unfold_time(resample(src_rep, sm.contiguous()), tpred)
+            warped = unfold_time(
+                resample(src, sm.contiguous(), frames=tpred), tpred)
             return {"generated_sparse": warped,
                     "generated_sparse_occ": warped * out["sparse_occ_bw"]}
 

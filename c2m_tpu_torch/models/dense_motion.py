@@ -172,15 +172,18 @@ class DenseMotionDecoder(nn.Module):
             if i > 0 and p.use_appearance_feature:
                 app = appearance[f"enco{nb - i}"]        # [B, h, w, C]
                 b, ah, aw, ac = app.shape
-                app_rep = app[:, None].expand(b, t, ah, aw, ac).reshape(
-                    b * t, ah, aw, ac).contiguous()
                 if p.use_feature_resample:
                     obj_motion = resize_flow(sm_flat, (ah, aw)).contiguous()
                     obj_occ = resize_bilinear(so_flat, (ah, aw),
                                               align_corners=False).contiguous()
-                    # resample(app_rep, obj_motion) * obj_occ, fused (K1)
-                    app_rep = resample_masked(app_rep, obj_motion.float(),
-                                              obj_occ.float())
+                    # resample(app repeated T times, obj_motion) * obj_occ,
+                    # fused (K1), reading the T frames from one image
+                    app_rep = resample_masked(app.contiguous(),
+                                              obj_motion.float(),
+                                              obj_occ.float(), frames=t)
+                else:
+                    app_rep = app[:, None].expand(b, t, ah, aw, ac).reshape(
+                        b * t, ah, aw, ac)
                 if x.shape[1:3] != (ah, aw):
                     x = resize_bilinear(x, (ah, aw), align_corners=False)
                 x = torch.cat([x, app_rep.to(x.dtype)], dim=-1)

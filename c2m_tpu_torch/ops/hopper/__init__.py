@@ -49,18 +49,18 @@ _F = ctypes.c_float
 
 # C signatures of the entry points in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
-    # img, flow, mask, out, B, H, W, C, masked, route, stream
-    "c2m_resample_f32": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
-    "c2m_resample_bf16": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
+    # img, flow, mask, out, B, H, W, C, frames, masked, route, stream
+    "c2m_resample_f32": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P],
+    "c2m_resample_bf16": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P],
     # grad_out, img, flow, mask, grad_img, grad_flow, grad_mask, B, H, W, C,
-    # masked, need_img, need_flow, need_mask, stream
-    "c2m_resample_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                             _I, _I, _I, _I, _P],
-    "c2m_resample_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                              _I, _I, _I, _I, _P],
+    # frames, masked, need_img, need_flow, need_mask, route, stream
+    "c2m_resample_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+                             _I, _I, _I, _I, _I, _P],
+    "c2m_resample_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+                              _I, _I, _I, _I, _I, _P],
     # instance, inst_ids, valid, thetas, winner, B, N, T, H, W, thr, stream
     "c2m_warp_masks_winner": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _F, _P],
-    # instance, inst_ids, valid, thetas, boxes, winner, B, N, T, H, W, thr,
+    # instance, inst_ids, valid, thetas, scratch, winner, B, N, T, H, W, thr,
     # stream
     "c2m_warp_masks_banded": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _F,
                               _P],

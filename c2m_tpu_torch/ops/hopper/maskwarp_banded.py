@@ -8,14 +8,17 @@ winner reduction after it (``c2m_tpu/ops/raster.py:308-330``). CUDA source:
 ``csrc/maskwarp_banded.cu``. It computes K2's function
 (:func:`maskwarp_kernel.warp_masks_winner_plain` is the plain version of
 both): a first pass takes every node's bounding box on the instance map;
-then, per (b, t, 16x32 output tile) and valid node, the tile's source window
-follows from the affine at the tile's four corners; a window that is empty
-or misses the node's box skips the node for the tile, a window-and-box
-region within the shared-memory budget is staged and tested there, a larger
-one takes K2's per-thread gather for that node and tile.
-:func:`node_boxes_plain` and :func:`source_windows_plain` are that box and
-window arithmetic in PyTorch, float32 operation for operation, so they can
-be tested without a card.
+then a warp per (b, t, 16x32 output tile) plans: the tile's source window
+under each node's affine follows from the tile's four corners, and a window
+that is empty or misses the node's box skips the node for the tile (a
+ballot makes the tile's live-node bits). The warp samples its 512 pixels
+for the live nodes only, in node order, with K2's per-pixel taps (a tap
+outside the node's box is 0 unread). :func:`node_boxes_plain` and
+:func:`source_windows_plain` are that box and window arithmetic in PyTorch,
+float32 operation for operation, :func:`tile_masks_plain` the plan's bits
+per tile as the warp holds them, and :func:`warp_masks_winner_planned_plain`
+the winner made from those bits alone, so they can be tested without a
+card.
 
 A CPU tensor takes the plain winner; a CUDA tensor launches the kernel or
 raises.
@@ -30,13 +33,14 @@ import torch
 from c2m_tpu_torch.ops import hopper
 from c2m_tpu_torch.ops.hopper import maskwarp_kernel
 from c2m_tpu_torch.ops.hopper.maskwarp_kernel import (INTERIOR_EPS,
+                                                      covered_plain,
                                                       warp_masks_winner_plain)
 
 # the kernel's constants (csrc/maskwarp_banded.cu)
 TILE = (16, 32)      # output tile, rows x columns
-WIN_MAX = 8192       # staged region budget in pixels
-NODES_MAX = 1137     # a block keeps 36 bytes per node in 40 KB
-_INT_MAX = 2 ** 31 - 1
+WIN_MAX = 8192       # pixels of a region above which it is a strong zoom-out
+                     # (``gather`` below)
+NODES_MAX = 2048     # the box pass keeps 20 bytes per node in 48 KB
 
 WARP_MASKS_BANDED = hopper.Kernel(
     "warp_masks_banded", "c2m_tpu_torch/csrc/maskwarp_banded.cu",
@@ -82,8 +86,8 @@ def source_windows_plain(thetas: torch.Tensor, h: int, w: int,
     (:func:`node_boxes_plain`; the window itself without ``boxes``);
     ``skip`` (the window is empty or misses the box: the kernel does not
     visit the node for this tile); ``gather`` (the region exceeds
-    ``win_max`` pixels: the node and tile take the per-thread global
-    gather). The affine is evaluated at the tile's four corner pixels
+    ``win_max`` pixels: a strong zoom-out, whose taps lie far apart; the
+    kernel reads every tap from the map, near or far). The affine is evaluated at the tile's four corner pixels
     (source coordinates are affine in the output pixel, so their extremes
     sit there), widened by one pixel each side for the bilinear support.
     """
@@ -129,6 +133,90 @@ def source_windows_plain(thetas: torch.Tensor, h: int, w: int,
             "gather": ~skip & (rh * rw > win_max)}
 
 
+def tile_masks_plain(instance: torch.Tensor, inst_ids: torch.Tensor,
+                     valid: torch.Tensor, thetas: torch.Tensor,
+                     tile: Tuple[int, int] = TILE) -> Dict[str, torch.Tensor]:
+    """The kernel's plan, laid out as its warps hold it: for every (b, t,
+    tile) in ``((b * T + t) * tiles_y + tile_y) * tiles_x + tile_x`` order
+    (the warp's number), ``masks`` [tiles, words] int64 holding the 32-bit
+    ballots of its live-node bits, one per round of 32 nodes (bit j of word
+    k: node 32k + j is visited), words = max(1, ceil(N/32)); and ``tiles``,
+    the ascending numbers of the tiles that have a live node (the only
+    warps that sample). A node is live for a tile where it is valid,
+    somewhere on the map, and the tile's source window, clipped to the
+    image, meets its box: the verdict of :func:`source_windows_plain`,
+    evaluated here per (tile, node) as a lane of the warp does."""
+    th_, tw_ = tile
+    b, h, w = instance.shape
+    n, t = thetas.shape[1:3]
+    dev = instance.device
+    boxes = node_boxes_plain(instance, inst_ids, valid)          # [B, N, 4]
+    r0 = torch.arange(0, h, th_, device=dev)
+    c0 = torch.arange(0, w, tw_, device=dev)
+    ty, tx = len(r0), len(c0)
+    # corner base coordinates per tile: [TY, 2] and [TX, 2]
+    by = (2.0 * torch.stack([r0, (r0 + th_ - 1).clamp_max(h - 1)], -1).float()
+          + 1.0) / h - 1.0
+    bx = (2.0 * torch.stack([c0, (c0 + tw_ - 1).clamp_max(w - 1)], -1).float()
+          + 1.0) / w - 1.0
+    # [B, T, TY, TX, N, 6]: a tile's lanes are its nodes
+    th = thetas.float().permute(0, 2, 1, 3)[:, :, None, None]
+    lo = hi = None
+    for k in range(4):
+        cx = bx[None, None, None, :, None, k & 1]
+        cy = by[None, None, :, None, None, k >> 1]
+        s = torch.stack([
+            _source_coord(th[..., 0], th[..., 1], th[..., 2], cx, cy, w),
+            _source_coord(th[..., 3], th[..., 4], th[..., 5], cx, cy, h)], -1)
+        lo, hi = (s, s) if k == 0 else (torch.fmin(lo, s), torch.fmax(hi, s))
+    zero = torch.zeros((), device=dev)
+    size = torch.tensor([w - 1.0, h - 1.0], device=dev)
+    wlo = torch.fmax(torch.floor(lo) - 1.0, zero)                # (x, y)
+    whi = torch.fmin(torch.ceil(hi) + 1.0, size)
+    box = boxes[:, None, None, None].to(dev)                     # [B,1,1,1,N,4]
+    rlo = torch.maximum(wlo.long(), box[..., [2, 0]])
+    rhi = torch.minimum(whi.long(), box[..., [3, 1]])
+    live = ((wlo <= whi).all(-1) & (rlo <= rhi).all(-1)
+            & valid[:, None, None, None, :].to(dev)
+            & (box[..., 0] < h))                                 # nowhere: h
+    words = max(1, -(-n // 32))
+    bits = torch.zeros(b, t, ty, tx, words * 32, dtype=torch.int64,
+                       device=dev)
+    bits[..., :n] = live.long()
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=dev)
+    masks = (bits.reshape(-1, words, 32) * weights).sum(-1)
+    tiles = torch.nonzero(masks.any(-1)).flatten()
+    return {"masks": masks, "tiles": tiles}
+
+
+def warp_masks_winner_planned_plain(instance: torch.Tensor,
+                                    inst_ids: torch.Tensor,
+                                    valid: torch.Tensor,
+                                    thetas: torch.Tensor,
+                                    tile: Tuple[int, int] = TILE
+                                    ) -> torch.Tensor:
+    """The winner as the kernel's warps make it, from the plan alone: every
+    pixel of a tile without a live node is 0, and a tile with some visits
+    only the nodes its bits name, in node order. Equal to
+    :func:`warp_masks_winner_plain` exactly where the plan skips no node
+    that covers a pixel of the tile."""
+    b, h, w = instance.shape
+    n, t = thetas.shape[1:3]
+    th_, tw_ = tile
+    ty, tx = -(-h // th_), -(-w // tw_)
+    plan = tile_masks_plain(instance, inst_ids, valid, thetas, tile)
+    visit = torch.zeros_like(plan["masks"])
+    visit[plan["tiles"]] = plan["masks"][plan["tiles"]]
+    winner = torch.zeros(b, t, h, w, dtype=torch.int32, device=instance.device)
+    for k in range(n):
+        bit = ((visit[:, k // 32] >> (k % 32)) & 1).bool()
+        bit = bit.reshape(b, t, ty, tx).repeat_interleave(th_, 2)
+        bit = bit.repeat_interleave(tw_, 3)[:, :, :h, :w]
+        covered = covered_plain(instance, inst_ids, valid, thetas, k) & bit
+        winner = torch.where(covered, torch.full_like(winner, k + 1), winner)
+    return winner
+
+
 def _launch(instance, inst_ids, valid, thetas):
     ids, valid_i, winner = maskwarp_kernel.check_and_allocate(
         instance, inst_ids, valid, thetas)
@@ -138,13 +226,13 @@ def _launch(instance, inst_ids, valid, thetas):
     n = thetas.shape[1]
     hopper.require(n <= NODES_MAX and b <= 65535,
                    f"at most {NODES_MAX} nodes and 65535 rows, got {n}, {b}")
-    # the boxes as the kernel's atomicMin wants them, see csrc
-    boxes = torch.full((b, n, 4), _INT_MAX, dtype=torch.int32,
-                       device=instance.device)
+    # the kernel's scratch: the nodes' boxes
+    scratch = torch.empty(b * n * 4, dtype=torch.int32,
+                          device=instance.device)
     err = hopper.library().c2m_warp_masks_banded(
         instance.data_ptr(), ids.data_ptr(), valid_i.data_ptr(),
-        thetas.data_ptr(), boxes.data_ptr(), winner.data_ptr(), b, n, t, h, w,
-        1.0 - INTERIOR_EPS, hopper.stream_ptr(instance))
+        thetas.data_ptr(), scratch.data_ptr(), winner.data_ptr(), b, n, t, h,
+        w, 1.0 - INTERIOR_EPS, hopper.stream_ptr(instance))
     hopper.check(err, "c2m_warp_masks_banded")
     WARP_MASKS_BANDED.launches += 1
     return winner

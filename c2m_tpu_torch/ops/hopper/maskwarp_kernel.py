@@ -37,21 +37,31 @@ def warp_masks_winner_plain(instance: torch.Tensor, inst_ids: torch.Tensor,
     instance [B, H, W] f32; inst_ids [B, N]; valid [B, N] bool;
     thetas [B, N, T, 6] f32 -> winner [B, T, H, W] int32.
     """
-    from c2m_tpu_torch.ops.warp import affine_grid, grid_sample_normalized
     b, h, w = instance.shape
-    n, t = thetas.shape[1:3]
-    ids = inst_ids.to(instance.dtype)
+    t = thetas.shape[2]
     winner = torch.zeros(b, t, h, w, dtype=torch.int32, device=instance.device)
-    for k in range(n):
-        obj = ((instance == ids[:, k, None, None])
-               & valid[:, k, None, None]).to(thetas.dtype)      # [B, H, W]
-        grid = affine_grid(thetas[:, k].reshape(b, t, 2, 3), h, w)
-        warped = grid_sample_normalized(
-            obj[..., None], grid.reshape(b, t * h, w, 2),
-            padding="zeros").reshape(b, t, h, w)
-        covered = (warped >= 1.0 - INTERIOR_EPS) & valid[:, k, None, None, None]
+    for k in range(thetas.shape[1]):
+        covered = covered_plain(instance, inst_ids, valid, thetas, k)
         winner = torch.where(covered, torch.full_like(winner, k + 1), winner)
     return winner
+
+
+def covered_plain(instance: torch.Tensor, inst_ids: torch.Tensor,
+                  valid: torch.Tensor, thetas: torch.Tensor, k: int
+                  ) -> torch.Tensor:
+    """Where node ``k``'s warped mask covers the pixel, [B, T, H, W] bool:
+    the step of :func:`warp_masks_winner_plain` for one node."""
+    from c2m_tpu_torch.ops.warp import affine_grid, grid_sample_normalized
+    b, h, w = instance.shape
+    t = thetas.shape[2]
+    ids = inst_ids.to(instance.dtype)
+    obj = ((instance == ids[:, k, None, None])
+           & valid[:, k, None, None]).to(thetas.dtype)          # [B, H, W]
+    grid = affine_grid(thetas[:, k].reshape(b, t, 2, 3), h, w)
+    warped = grid_sample_normalized(
+        obj[..., None], grid.reshape(b, t * h, w, 2),
+        padding="zeros").reshape(b, t, h, w)
+    return (warped >= 1.0 - INTERIOR_EPS) & valid[:, k, None, None, None]
 
 
 def check_and_allocate(instance, inst_ids, valid, thetas):

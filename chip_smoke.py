@@ -17,16 +17,26 @@ Phases (any failure raises and the script exits non-zero):
      against autograd of the plain version, with median times (CUDA events,
      after warm-up), the least time the card could take (bound) and, where
      one PyTorch call computes the same function (F.grid_sample for K1),
-     that call's time. K1 forward and K4 are held and timed on two kinds of
+     that call's time. K1 reads one image for the T frames of a clip where
+     the paths do (decoder skips, previews, warped loss: ``frames``), and
+     is held there to the forward of the repeated image bit for bit. K1
+     forward and K4 are held and timed on two kinds of
      flow: independent noise per pixel (the row of record) and a smooth flow
      as a request's dense flow looks; their times are given twice, around
      one call (the wrapper's host time included, as for every kernel) and
-     for the device alone (a CUDA graph of 20 launches). Both also run once
+     for the device alone (a CUDA graph of 20 launches). K1 backward is
+     timed three times (around one call, through autograd, device alone)
+     and, device alone, in turns with its first version (route scalar64)
+     on the same inputs, which it must not trail; its flow and mask
+     gradients, stored without atomics, must repeat bit for bit. Both also
+     run once
      at what the paths never give them (every route of K1, unaligned views,
      1-wide images; K4 at flows longer than its halo, ragged sizes, NaN and
-     far-out coordinates). K3 is also held against K2 on the same inputs, for
-     GT-like, GNN-like and window-overflowing thetas, and each of the two
-     is timed at the other's shapes as well;
+     far-out coordinates). K2 and K3 run on the same inputs, equal to each
+     other, timed around one call and device alone in turns, with K3's
+     passes apart: at both kernels' path shapes, for GT-like, GNN-like and
+     window-overflowing thetas, on image-wide objects and with N near K3's
+     node limit;
   4. a ServingModel at the journal config's full width
      (configs/c2m_journal_cityscapes.yaml, bfloat16 compute, batch bucket
      12), random weights from a seeded torch.Generator, answering three
@@ -158,6 +168,29 @@ def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
     return time_ms(graph.replay, reps=reps, warmup=1) / launches
 
 
+def kernel_split(fn, names: dict, calls: int = 5) -> dict:
+    """Device milliseconds per call of each kernel ``fn`` launches, by a
+    substring of its name (``names``: label -> substring), from
+    torch.profiler over ``calls`` calls after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label in names}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        for label, part in names.items():
+            if part in e.key:
+                out[label] += e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -282,7 +315,7 @@ def odd_cases(dev, g):
     flow = ((torch.rand(2, 17, 33, 2, generator=g) - 0.5) * 16).to(dev)
     want = wk.resample_plain(img, flow, None)
     for route in wk.ROUTES:
-        check(torch.equal(wk._launch(img, flow, None, route), want),
+        check(torch.equal(wk._launch(img, flow, None, route=route), want),
               f"K1 route {route} differs from the plain version")
     check(seen == {"vec", "pixel", "scalar"}, f"K1 routes seen: {seen}")
     log(f"  K1 forward, {len(shapes)} odd shapes x 2 types x (un)aligned x "
@@ -331,46 +364,62 @@ def phase_kernels(dev):
     g = torch.Generator().manual_seed(SEED)
     rows = {}
 
-    def inputs(dtype, shape, masked):
+    def inputs(dtype, shape, masked, frames=1):
+        """An image of shape[0] / frames rows; flow and mask of shape[0]."""
         b, h, w, c = shape
-        img = torch.rand(b, h, w, c, generator=g).to(dtype).to(dev)
+        img = torch.rand(b // frames, h, w, c, generator=g).to(dtype).to(dev)
         flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 16).to(dev)
         mask = torch.rand(b, h, w, 1, generator=g).to(dev) if masked else None
         return img, flow, mask
 
-    def resample_fns(img, flow, mask):
+    def resample_fns(img, flow, mask, frames=1):
         """The kernel, its plain version and the library call (yardstick
         only, the port never calls it: the warp without the mask product,
-        grid and NCHW view made beforehand) on one set of inputs."""
+        grid, NCHW view and the image repeated for its frames made
+        beforehand) on one set of inputs."""
         if mask is not None:
-            run = lambda: wk.resample_masked(img, flow, mask)   # noqa: E731
+            run = lambda: wk.resample_masked(img, flow, mask,   # noqa: E731
+                                             frames=frames)
         else:
-            run = lambda: wk.resample(img, flow)                # noqa: E731
-        plain = lambda: wk.resample_plain(img, flow, mask)      # noqa: E731
-        grid, nchw = grid_of(flow).to(img.dtype), img.permute(0, 3, 1, 2)
+            run = lambda: wk.resample(img, flow, frames=frames)  # noqa: E731
+        plain = lambda: wk.resample_plain(img, flow, mask,      # noqa: E731
+                                          frames)
+        grid = grid_of(flow).to(img.dtype)
+        nchw = img.repeat_interleave(frames, 0).permute(0, 3, 1, 2)
         lib = lambda: F.grid_sample(nchw, grid, mode="bilinear",  # noqa: E731
                                     padding_mode="border", align_corners=False)
         return run, plain, lib
 
-    def resample_case(kernel, dtype, shape, masked, role):
-        img, flow, mask = inputs(dtype, shape, masked)
-        run, plain, lib = resample_fns(img, flow, mask)
+    def resample_case(kernel, dtype, shape, masked, role, frames=1):
+        """K1 forward at the output shape ``shape``, the image passed once
+        for ``frames`` rows of it."""
+        img, flow, mask = inputs(dtype, shape, masked, frames)
+        run, plain, lib = resample_fns(img, flow, mask, frames)
         err = (run().float() - plain().float()).abs().max().item()
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        if frames > 1:
+            # exactly what the repeated image gives at frames=1
+            rep = img.repeat_interleave(frames, 0)
+            same = torch.equal(run(), resample_fns(rep, flow, mask)[0]())
+            check(same, f"{kernel.name} {shape} frames={frames} differs from "
+                  f"the repeated image")
         ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
         # the same image and mask under a smooth flow, as a request's dense
         # flow looks (the noise above stays the row of record)
         s_run, s_plain, s_lib = resample_fns(
-            img, smooth_flow(g, shape[0], shape[1], shape[2], dev), mask)
+            img, smooth_flow(g, shape[0], shape[1], shape[2], dev), mask,
+            frames)
         s_err = (s_run().float() - s_plain().float()).abs().max().item()
         smooth = {"max_abs_err": s_err, "ms": time_ms(s_run),
                   "library_ms": time_ms(s_lib), "device_ms": device_ms(s_run),
                   "library_device_ms": device_ms(s_lib)}
         dev_ms, lib_dev_ms = device_ms(run), device_ms(lib)
-        pix, n = img.numel() // shape[3], img.numel()
-        bd = bound(nbytes(img, flow, mask) + nbytes(img), 16 * pix + 10 * n)
-        log(f"  {kernel.name} {role} {list(shape)} masked={masked} route "
-            f"{wk.resample_route(dtype, shape)}: "
+        out_bytes = nbytes(img) * frames
+        n = int(np.prod(shape))
+        pix = n // shape[3]
+        bd = bound(nbytes(img, flow, mask) + out_bytes, 16 * pix + 10 * n)
+        log(f"  {kernel.name} {role} {list(shape)} frames={frames} "
+            f"masked={masked} route {wk.resample_route(dtype, shape)}: "
             f"max|diff| {err:.3g} (tol {tol:.3g})  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms  grid_sample {lib_ms:.4f} ms  bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  device alone: "
@@ -383,15 +432,19 @@ def phase_kernels(dev):
               f"{kernel.name} {shape}: max|diff| {err}, {s_err} > {tol}")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "device_ms": dev_ms,
-                "library_device_ms": lib_dev_ms, "shape": list(shape), **bd,
-                "smooth": smooth}
+                "library_device_ms": lib_dev_ms, "shape": list(shape),
+                "frames": frames, "layout": wk.resample_route(dtype, shape),
+                **bd, "smooth": smooth}
 
-    def backward_case(kernel, dtype, shape, masked, needs, role):
-        """K1's gradients (needs: which of image, flow, mask) against
-        autograd of the plain version and against F.grid_sample's."""
-        img, flow, mask = inputs(dtype, shape, masked)
+    def backward_case(kernel, dtype, shape, masked, needs, role, frames=1):
+        """K1's gradients (needs: which of image, flow, mask) at the output
+        shape ``shape``, the image passed once for ``frames`` rows, against
+        autograd of the plain version and against F.grid_sample's (on the
+        image repeated for its frames, the sum over them included)."""
+        img, flow, mask = inputs(dtype, shape, masked, frames)
         gout = torch.randn(shape, generator=g).to(dtype).to(dev)
         names = [n for n, need in zip(("image", "flow", "mask"), needs) if need]
+        route = wk.resample_backward_route(dtype, shape)
 
         def leaves():
             ts = {"image": img, "flow": flow, "mask": mask}
@@ -406,20 +459,24 @@ def phase_kernels(dev):
                                                retain_graph=True)
 
         def kernel_fn(i, f, m):
-            return wk.resample_masked(i, f, m) if masked else wk.resample(i, f)
+            return (wk.resample_masked(i, f, m, frames=frames) if masked
+                    else wk.resample(i, f, frames=frames))
+
+        def plain_fn(i, f, m):
+            return wk.resample_plain(i, f, m, frames)
 
         def lib_fn(i, f, m):
-            out = F.grid_sample(i.permute(0, 3, 1, 2), grid_of(f).to(dtype),
-                                mode="bilinear", padding_mode="border",
-                                align_corners=False).permute(0, 2, 3, 1)
+            out = F.grid_sample(i.repeat_interleave(frames, 0).permute(
+                0, 3, 1, 2), grid_of(f).to(dtype), mode="bilinear",
+                padding_mode="border", align_corners=False).permute(0, 2, 3, 1)
             return out * m.to(dtype) if m is not None else out
 
-        run, plain, lib = (grads_of(kernel_fn), grads_of(wk.resample_plain),
+        run, plain, lib = (grads_of(kernel_fn), grads_of(plain_fn),
                            grads_of(lib_fn))
         # the forward that the backward differentiates, on the same inputs
         with torch.no_grad():
             fwd_err = (kernel_fn(img, flow, mask).float()
-                       - wk.resample_plain(img, flow, mask).float()
+                       - plain_fn(img, flow, mask).float()
                        ).abs().max().item()
         fwd_tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         check(fwd_err <= fwd_tol, f"{kernel.name} {shape}: forward max|diff| "
@@ -437,37 +494,70 @@ def phase_kernels(dev):
             check(err <= tol, f"{kernel.name} {shape} d/d{name}: {err} > {tol}")
             worst = max(worst, err)
         # the wrapper alone (zeroed buffers, the kernel, one cast), then the
-        # same through autograd, as the train step reaches it
-        direct = lambda: wk._launch_backward(gout, img, flow, mask, *needs)  # noqa: E731
+        # same through autograd, as the train step reaches it; the first
+        # version of the kernel (route scalar64) on the same inputs
+        def direct(r=None):
+            return wk._launch_backward(gout, img, flow, mask, *needs, frames,
+                                       route=r)
+
+        first, again = direct(), direct()
+        if route != "scalar64":
+            # the flow and mask gradients are stored, not accumulated: equal
+            # run to run
+            for k in (1, 2):
+                check(first[k] is None or torch.equal(first[k], again[k]),
+                      f"{kernel.name} {shape}: gradient {k} differs between "
+                      f"two runs")
         ms, autograd_ms = time_ms(direct), time_ms(run)
         plain_ms, lib_ms = time_ms(plain, reps=10), time_ms(lib)
-        pix, n = img.numel() // shape[3], img.numel()
+        old = lambda: direct("scalar64")                        # noqa: E731
+        turns = [device_ms(old), device_ms(direct), device_ms(direct),
+                 device_ms(old)]
+        dev_ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        # the wrapper's device work by kernel: the zero-fill, the kernel, the
+        # cast
+        parts = {"fill": "Fill", "kernel": "resample_bwd", "cast": "copy"}
+        split, old_split = kernel_split(direct, parts), kernel_split(old, parts)
+        n = int(np.prod(shape))
+        pix = n // shape[3]
         need_taps = needs[1] or needs[2]
         moved = (nbytes(gout, flow, mask) + (nbytes(img) if need_taps else 0)
                  + (nbytes(img) if needs[0] else 0)
                  + (nbytes(flow) if needs[1] else 0)
                  + (nbytes(mask) if needs[2] else 0))
         bd = bound(moved, 16 * pix + 25 * n)
-        log(f"  {kernel.name} {role} {list(shape)} grads {names}: kernel "
-            f"{ms:.4f} ms ({autograd_ms:.4f} through autograd)  plain "
+        log(f"  {kernel.name} {role} {list(shape)} frames={frames} route "
+            f"{route} grads {names}: kernel {ms:.4f} ms ({autograd_ms:.4f} "
+            f"through autograd; device alone {dev_ms:.4f}, first version "
+            f"{old_ms:.4f} in turns {[round(t, 4) for t in turns]}; by "
+            f"kernel {({k: round(v, 4) for k, v in split.items()})}, first "
+            f"version's "
+            f"{({k: round(v, 4) for k, v in old_split.items()})})  plain "
             f"autograd {plain_ms:.4f} ms  grid_sample backward {lib_ms:.4f} "
             f"ms  bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        check(dev_ms <= 1.1 * old_ms, f"{kernel.name} {shape} frames={frames}"
+              f": device alone {dev_ms} slower than its first version "
+              f"{old_ms}")
         return {"max_abs_err": worst, "ms": ms, "autograd_ms": autograd_ms,
-                "plain_ms": plain_ms,
-                "library_ms": lib_ms, "shape": list(shape),
+                "device_ms": dev_ms, "first_version_device_ms": old_ms,
+                "device_by_kernel_ms": split,
+                "first_version_by_kernel_ms": old_split,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "shape": list(shape), "frames": frames, "layout": route,
                 "err": "max |diff| over the largest reference gradient", **bd}
 
     log("[phase 3] kernels vs plain versions on the card")
     odd_cases(dev, g)
-    # the journal config's four decoder skips: with the bottleneck, the five
+    # the journal config's four decoder skips (the appearance features of
+    # a clip, passed once for its 5 frames): with the bottleneck, the five
     # bf16 launches of a request (60 folded frames) or a step (15)
     skips = [(32, 64, 64), (16, 32, 128), (8, 16, 256), (4, 8, 512)]
     serving_skips = [
         resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (60, *hwc), True,
-                      "decoder skip") for hwc in skips]
+                      "decoder skip", frames=5) for hwc in skips]
     for hwc in skips:
         resample_case(wk.RESAMPLE_F32, torch.float32, (60, *hwc), True,
-                      "decoder skip")
+                      "decoder skip", frames=5)
     rows["resample_bf16"] = resample_case(
         wk.RESAMPLE_BF16, torch.bfloat16, (60, 16, 32, 256), True,
         "generator bottleneck")
@@ -475,40 +565,104 @@ def phase_kernels(dev):
     resample_case(wk.RESAMPLE_F32, torch.float32, (60, 16, 32, 256), True,
                   "generator bottleneck")
     rows["resample_f32"] = resample_case(
-        wk.RESAMPLE_F32, torch.float32, (60, 128, 256, 3), False, "previews")
+        wk.RESAMPLE_F32, torch.float32, (60, 128, 256, 3), False, "previews",
+        frames=5)
 
     # K1 forward at the train step's shapes (batch 3 x 5 frames folded)
     train = {}
     rows["resample_bf16"]["train_skips"] = [
         resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (15, *hwc), True,
-                      "train decoder skip") for hwc in skips]
+                      "train decoder skip", frames=5) for hwc in skips]
     train["resample_bf16"] = resample_case(
         wk.RESAMPLE_BF16, torch.bfloat16, (15, 16, 32, 256), True,
         "train generator bottleneck")
     train["resample_f32"] = resample_case(
         wk.RESAMPLE_F32, torch.float32, (15, 128, 256, 3), False,
-        "train warped loss and previews")
+        "train warped loss and previews", frames=5)
 
-    # K1 backward at the same shapes
-    for shape in [(15, 32, 64, 64), (15, 16, 32, 128), (15, 8, 16, 256),
-                  (15, 4, 8, 512)]:
-        backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, shape, True,
-                      (True, False, False), "decoder skip")
+    # K1 backward at the same shapes; the skips also at frames=1 (the image
+    # repeated for its frames, as callers passed it before frames existed)
     rows["resample_bwd_bf16"] = backward_case(
         wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, 16, 32, 256), True,
         (True, True, True), "generator bottleneck")
-    backward_case(wk.RESAMPLE_BWD_F32, torch.float32, (15, 16, 32, 256), True,
-                  (True, True, True), "generator bottleneck")
-    backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, 16, 32, 256),
-                  False, (True, True, False), "unmasked")
-    backward_case(wk.RESAMPLE_BWD_F32, torch.float32, (15, 128, 256, 2), False,
-                  (True, True, False), "flow consistency")
+    rows["resample_bwd_bf16"]["train_skips"] = [
+        backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, *hwc), True,
+                      (True, False, False), "decoder skip", frames)
+        for frames in (5, 1) for hwc in skips]
+    rows["resample_bwd_bf16"]["unmasked"] = backward_case(
+        wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, 16, 32, 256), False,
+        (True, True, False), "unmasked")
     rows["resample_bwd_f32"] = backward_case(
         wk.RESAMPLE_BWD_F32, torch.float32, (15, 128, 256, 3), False,
-        (False, True, False), "warped loss")
+        (False, True, False), "warped loss", frames=5)
+    rows["resample_bwd_f32"]["bottleneck"] = backward_case(
+        wk.RESAMPLE_BWD_F32, torch.float32, (15, 16, 32, 256), True,
+        (True, True, True), "generator bottleneck")
+    rows["resample_bwd_f32"]["flow_consistency"] = backward_case(
+        wk.RESAMPLE_BWD_F32, torch.float32, (15, 128, 256, 2), False,
+        (True, True, False), "flow consistency")
+
+    def k2_and_k3(args, tol, label):
+        """K2 and K3 on the same inputs: K3 equal to K2, both within
+        ``tol`` of the plain winner; times around one call, and device
+        alone in turns (K2, K3, K3, K2); K3's passes apart (torch.profiler,
+        device time by kernel); the (tile, node) pairs and tiles K3
+        visits."""
+        b, h, w = args[0].shape
+        n, t = args[3].shape[1:3]
+        k2 = lambda: mk.warp_masks_winner(*args)                # noqa: E731
+        k3 = lambda: mb.warp_masks_winner_banded(*args)         # noqa: E731
+        plain = lambda: mk.warp_masks_winner_plain(*args)       # noqa: E731
+        winner = k3()
+        frac = (winner != plain()).float().mean().item()
+        check(torch.equal(winner, k2()), f"{label}: K3 differs from K2")
+        check(frac <= tol, f"{label}: mismatch vs plain {frac} > {tol}")
+        windows = mb.source_windows_plain(
+            args[3], h, w, boxes=mb.node_boxes_plain(*args[:3]))
+        tiles = mb.tile_masks_plain(*args)
+        k2_ms, k3_ms = time_ms(k2), time_ms(k3)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        turns = [device_ms(k2), device_ms(k3), device_ms(k3), device_ms(k2)]
+        passes = kernel_split(k3, {"memsets": "Memset", "boxes": "node_boxes",
+                                   "tiles": "warp_masks_tiles"})
+        live = int((~windows["skip"]).sum().item())
+        out = {"k2_ms": k2_ms, "k3_ms": k3_ms, "plain_ms": plain_ms,
+               "k2_device_ms": (turns[0] + turns[3]) / 2,
+               "k3_device_ms": (turns[1] + turns[2]) / 2,
+               "k3_passes_ms": passes, "mismatch_vs_plain": frac,
+               "pairs_visited": live, "pairs": windows["skip"].numel(),
+               "tiles_visited": int(tiles["tiles"].numel()),
+               "tiles": int(tiles["masks"].shape[0]),
+               "windows_over_budget": int(windows["gather"].sum().item()),
+               "shape": [b, n, t, h, w]}
+        log(f"  {label} [{b},{n},{t},{h},{w}]: winner mismatch vs plain "
+            f"{frac:.3g} (tol {tol:.3g}), K3 vs K2 0; K3 visits {live} of "
+            f"{out['pairs']} (tile, node) pairs in {out['tiles_visited']} of "
+            f"{out['tiles']} tiles, {out['windows_over_budget']} regions "
+            f"over {mb.WIN_MAX} pixels; around a call K2 {k2_ms:.4f} ms  K3 "
+            f"{k3_ms:.4f} ms; device alone K2 {out['k2_device_ms']:.4f}  K3 "
+            f"{out['k3_device_ms']:.4f} (in turns "
+            f"{[round(x, 4) for x in turns]}); K3's passes "
+            f"{ {k: round(v, 4) for k, v in passes.items()} }; plain "
+            f"{plain_ms:.4f} ms")
+        return out
+
+    def winner_bound(args, live, tiles):
+        """Per output pixel 6 operations for its base coordinates; per
+        (node, tile) ~60 for the window; where the window meets the node's
+        box ~30 per pixel of the tile (this run's maps and thetas: a tile
+        pays nothing per pixel for a node it cannot touch); one compare per
+        (source pixel, node) for the boxes. Bytes: inputs read, winner
+        written."""
+        b, h, w = args[0].shape
+        n, t = args[3].shape[1:3]
+        return bound(nbytes(*args) + 4 * b * t * h * w,
+                     b * n * h * w + 6 * b * t * h * w + 60 * n * tiles
+                     + live * 30 * mb.TILE[0] * mb.TILE[1])
 
     def maskwarp_case(b, role):
-        """K2 at [B, N, H, W] x [B, N, T, 6] = [b, 16, 128, 256] x [b, 16, 5, 6]."""
+        """K2 at [B, N, H, W] x [B, N, T, 6] = [b, 16, 128, 256] x [b, 16, 5, 6],
+        K3 on the same inputs."""
         n, t, h, w = 16, 5, 128, 256
         rng = np.random.RandomState(SEED)
         inst = np.zeros((b, h, w), np.float32)
@@ -527,28 +681,19 @@ def phase_kernels(dev):
         th[..., 5] = rng.randn(b, n, t) * 0.1
         args = [torch.as_tensor(a, device=dev)
                 for a in (inst, ids, np.ones((b, n), bool), th)]
-        run = lambda: mk.warp_masks_winner(*args)               # noqa: E731
-        plain = lambda: mk.warp_masks_winner_plain(*args)       # noqa: E731
-        k3 = lambda: mb.warp_masks_winner_banded(*args)         # noqa: E731
-        winner = run()
-        frac = (winner != plain()).float().mean().item()
-        check(torch.equal(winner, k3()), f"K2 {role}: differs from K3")
-        ms, plain_ms, k3_ms = time_ms(run), time_ms(plain, reps=5), time_ms(k3)
+        both = k2_and_k3(args, TOL_FLIP, f"warp_masks_winner {role}")
         # per output pixel 6 operations for its base coordinates, and per
         # valid node ~30 (affine, source coordinate, bilinear weights,
         # interpolation)
         n_valid = int(args[2].sum().item()) * t * h * w
-        bd = bound(nbytes(*args) + nbytes(winner),
-                   6 * winner.numel() + 30 * n_valid)
-        log(f"  warp_masks_winner {role} [{b},16,128,256]x[{b},16,5,6]: winner "
-            f"mismatch {frac:.3g} of pixels (tol {TOL_FLIP})  kernel {ms:.4f} "
-            f"ms  K3 on the same inputs {k3_ms:.4f} ms  plain {plain_ms:.4f} "
-            f"ms  bound {bd['bound_ms']:.4f} ms "
+        bd = bound(nbytes(*args) + 4 * b * t * h * w,
+                   6 * b * t * h * w + 30 * n_valid)
+        log(f"  warp_masks_winner {role}: bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']})  no single library call")
-        check(frac <= TOL_FLIP, f"winner mismatch {frac} > {TOL_FLIP}")
-        return {"max_abs_err": frac, "ms": ms, "k3_ms": k3_ms,
-                "plain_ms": plain_ms, "library_ms": None,
-                "shape": [b, n, t, h, w],
+        return {"max_abs_err": both["mismatch_vs_plain"], "ms": both["k2_ms"],
+                "device_ms": both["k2_device_ms"],
+                "plain_ms": both["plain_ms"], "library_ms": None,
+                "shape": both["shape"], "k3": both,
                 "err": "winner mismatch fraction", **bd}
 
     def splat_case(b, role, h=128, w=256):
@@ -579,80 +724,24 @@ def phase_kernels(dev):
                 "shape": [b, h, w, 2], "flips": flips, "max_mass": mass, **bd,
                 "smooth": smooth}
 
-    def banded_case(b, kind):
-        """K3 at [b, 24, 512, 1024] x [b, 24, 10, 6] against the plain winner
-        and against K2 on the same inputs. kind: 'gt' axis-aligned
-        half-integer pixel translations (no sample near the threshold: 0
-        mismatches), 'gnn' small scale, shear and translation noise, 'zoom'
-        as 'gnn' with node 0 covering the middle of the map, rotated by 1 rad
-        and zoomed out 6x, so that its regions overflow the staging budget
-        (the in-kernel gather branch)."""
-        n, t, h, w = 24, 10, 512, 1024
-        rng = np.random.RandomState(SEED)
-        inst = np.zeros((b, h, w), np.float32)
-        for bi in range(b):
-            for k in range(n):
-                bh, bw = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
-                y0, x0 = rng.randint(0, h - bh), rng.randint(0, w - bw)
-                inst[bi, y0:y0 + bh, x0:x0 + bw] = 26001 + k
-        ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
-        th = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (b, n, t, 1))
-        if kind == "gt":
-            th[..., 2] = (rng.randint(-40, 41, (b, n, t)) + 0.5) * 2.0 / w
-            th[..., 5] = (rng.randint(-20, 21, (b, n, t)) + 0.5) * 2.0 / h
-        else:
-            th[..., 0] += rng.randn(b, n, t) * 0.05
-            th[..., 4] += rng.randn(b, n, t) * 0.05
-            th[..., 1] = rng.randn(b, n, t) * 0.03
-            th[..., 3] = rng.randn(b, n, t) * 0.03
-            th[..., 2] = rng.randn(b, n, t) * 0.1
-            th[..., 5] = rng.randn(b, n, t) * 0.1
-        if kind == "zoom":
-            c, sn = 6 * np.cos(1.0), 6 * np.sin(1.0)
-            th[:, 0] = np.array([c, -sn, 0.1, sn, c, -0.05], np.float32)
-            inst[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = ids[0, 0]
-        args = [torch.as_tensor(a, device=dev)
-                for a in (inst, ids, np.ones((b, n), bool), th)]
-        run = lambda: mb.warp_masks_winner_banded(*args)        # noqa: E731
-        k2 = lambda: mk.warp_masks_winner(*args)                # noqa: E731
-        plain = lambda: mk.warp_masks_winner_plain(*args)       # noqa: E731
-        winner = run()
-        frac = (winner != plain()).float().mean().item()
-        vs_k2 = (winner != k2()).float().mean().item()
-        plan = mb.source_windows_plain(
-            args[3], h, w, boxes=mb.node_boxes_plain(*args[:3]))
-        gather_tiles = int(plan["gather"].sum().item())
-        ms, k2_ms = time_ms(run), time_ms(k2)
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        # one compare per (source pixel, node) for the boxes; per output
-        # pixel 6 operations for its base coordinates; per (node, tile) ~60
-        # for the window, and where the window meets the node's box ~30 per
-        # pixel of the tile (this run's maps and thetas: a tile pays nothing
-        # per pixel for a node it cannot touch)
-        live = int((~plan["skip"]).sum().item())
-        bd = bound(nbytes(*args) + nbytes(winner),
-                   b * n * h * w + 6 * winner.numel()
-                   + 60 * plan["skip"].numel()
-                   + live * 30 * mb.TILE[0] * mb.TILE[1])
+    def banded_case(b, kind, n=24, t=10, h=512, w=1024):
+        """K3 at [b, n, h, w] x [b, n, t, 6] (the long-horizon map: 24 nodes,
+        10 frames, 512x1024) on :func:`banded_inputs` of ``kind``, against
+        the plain winner and against K2 on the same inputs."""
+        args = banded_inputs(b, kind, dev, n, t, h, w)
         tol = 0.0 if kind == "gt" else TOL_FLIP
-        log(f"  warp_masks_banded {kind} [{b},24,512,1024]x[{b},24,10,6]: "
-            f"winner mismatch vs plain {frac:.3g} (tol {tol:.3g}), vs K2 "
-            f"{vs_k2:.3g} (tol 0); {live} of {plan['skip'].numel()} (node, "
-            f"tile) pairs visited, {gather_tiles} over the staging budget; "
-            f"kernel {ms:.4f} ms  K2 on the same inputs "
-            f"{k2_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
-            f"call")
-        check(frac <= tol, f"K3 {kind} B={b}: mismatch vs plain {frac} > {tol}")
-        check(vs_k2 == 0.0, f"K3 {kind} B={b}: differs from K2 in {vs_k2}")
-        check((gather_tiles > 0) == (kind == "zoom"),
-              f"K3 {kind} B={b}: {gather_tiles} windows over the budget")
-        return {"max_abs_err": frac, "ms": ms, "k2_ms": k2_ms,
-                "plain_ms": plain_ms, "library_ms": None,
-                "shape": [b, n, t, h, w], "thetas": kind,
-                "windows_over_budget": gather_tiles,
-                "pairs_visited": live, "pairs": plan["skip"].numel(),
-                "err": "winner mismatch fraction", **bd}
+        both = k2_and_k3(args, tol, f"warp_masks_banded {kind}")
+        check((both["windows_over_budget"] > 0) == (kind == "zoom"),
+              f"K3 {kind} B={b}: {both['windows_over_budget']} windows over "
+              f"the budget")
+        bd = winner_bound(args, both["pairs_visited"], both["tiles"])
+        log(f"  warp_masks_banded {kind}: bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})  no single library call")
+        return {"max_abs_err": both["mismatch_vs_plain"], "ms": both["k3_ms"],
+                "device_ms": both["k3_device_ms"],
+                "plain_ms": both["plain_ms"], "library_ms": None,
+                "thetas": kind, **both, "err": "winner mismatch fraction",
+                **bd}
 
     def correlation_case(shape, role):
         """K5 at FlowNetC's grid (max displacement 20, stride 2)."""
@@ -691,9 +780,13 @@ def phase_kernels(dev):
     # K3: its row is the long-horizon request's shape (bucket 4) with
     # GNN-like thetas; the other cases ride along
     rows["warp_masks_banded"] = banded_case(4, "gnn")
+    # the other cases; then where the size rule's two kernels meet: image-
+    # wide objects at both map sizes, and N near K3's node limit
     rows["warp_masks_banded"]["cases"] = [
         banded_case(4, "gt"), banded_case(4, "zoom"), banded_case(1, "gt"),
-        banded_case(1, "gnn"), banded_case(1, "zoom")]
+        banded_case(1, "gnn"), banded_case(1, "zoom"),
+        banded_case(1, "wide"), banded_case(3, "wide", 16, 5, 128, 256),
+        banded_case(1, "gnn", mb.NODES_MAX - 8, 5, 128, 256)]
     # K5: the journal train batch's 30 frame pairs, and one 512x1024 pair
     rows["correlation"] = correlation_case((30, 16, 32, 256), "on-the-fly")
     rows["correlation"]["cases"] = [
@@ -708,23 +801,87 @@ def phase_kernels(dev):
     for b, role in ((10, "long_horizon_train"), (40, "long_horizon_serving")):
         rows["resample_bf16"][role + "_skips"] = [
             resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (b, *hwc), True,
-                          role + " decoder skip") for hwc in long_skips]
+                          role + " decoder skip", frames=10)
+            for hwc in long_skips]
         rows["resample_bf16"][role] = resample_case(
             wk.RESAMPLE_BF16, torch.bfloat16, (b, 64, 128, 256), True, role)
         rows["resample_f32"][role] = resample_case(
-            wk.RESAMPLE_F32, torch.float32, (b, 512, 1024, 3), False, role)
+            wk.RESAMPLE_F32, torch.float32, (b, 512, 1024, 3), False, role,
+            frames=10)
         rows["corresponding_map"][role] = splat_case(b, role, 512, 1024)
     rows["resample_bwd_bf16"]["long_horizon_train_skips"] = [
         backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, (10, *hwc), True,
-                      (True, False, False), "long_horizon_train decoder skip")
-        for hwc in long_skips]
+                      (True, False, False), "long_horizon_train decoder skip",
+                      frames)
+        for frames in (10, 1) for hwc in long_skips]
     rows["resample_bwd_bf16"]["long_horizon_train"] = backward_case(
         wk.RESAMPLE_BWD_BF16, torch.bfloat16, (10, 64, 128, 256), True,
         (True, True, True), "long_horizon_train")
     rows["resample_bwd_f32"]["long_horizon_train"] = backward_case(
         wk.RESAMPLE_BWD_F32, torch.float32, (10, 512, 1024, 3), False,
-        (False, True, False), "long_horizon_train")
+        (False, True, False), "long_horizon_train", frames=10)
     return rows
+
+
+def banded_inputs(b, kind, dev, n=24, t=10, h=512, w=1024):
+    """Instance map, ids, valid and thetas of the mask warp at
+    [b, n, h, w] x [b, n, t, 6]: objects of 1/8-1/4 of the map each side.
+    kind: 'gt' axis-aligned half-integer pixel translations (no sample near
+    the threshold: 0 mismatches), 'gnn' small scale, shear and translation
+    noise, 'zoom' as 'gnn' with node 0 covering the middle of the map,
+    rotated by 1 rad and zoomed out 6x, so that its regions exceed
+    mb.WIN_MAX pixels (a strong zoom-out: taps far apart), 'wide' as 'gnn' on
+    image-wide objects (a band of rows and a column across the map per
+    node: every tile's window meets every box, so K3 skips nothing)."""
+    rng = np.random.RandomState(SEED)
+    inst = np.zeros((b, h, w), np.float32)
+    for bi in range(b):
+        for k in range(n):
+            bh, bw = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
+            y0, x0 = rng.randint(0, h - bh), rng.randint(0, w - bw)
+            inst[bi, y0:y0 + bh, x0:x0 + bw] = 26001 + k
+    ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
+    if kind == "wide":
+        for k in range(n):
+            inst[:, (k * h) // n:((k + 1) * h) // n, :] = 26001 + k
+        for k in range(n):
+            inst[:, :, (k * w) // n] = 26001 + k
+    th = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (b, n, t, 1))
+    if kind == "gt":
+        th[..., 2] = (rng.randint(-40, 41, (b, n, t)) + 0.5) * 2.0 / w
+        th[..., 5] = (rng.randint(-20, 21, (b, n, t)) + 0.5) * 2.0 / h
+    else:
+        th[..., 0] += rng.randn(b, n, t) * 0.05
+        th[..., 4] += rng.randn(b, n, t) * 0.05
+        th[..., 1] = rng.randn(b, n, t) * 0.03
+        th[..., 3] = rng.randn(b, n, t) * 0.03
+        th[..., 2] = rng.randn(b, n, t) * 0.1
+        th[..., 5] = rng.randn(b, n, t) * 0.1
+    if kind == "zoom":
+        c, sn = 6 * np.cos(1.0), 6 * np.sin(1.0)
+        th[:, 0] = np.array([c, -sn, 0.1, sn, c, -0.05], np.float32)
+        inst[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = ids[0, 0]
+    return [torch.as_tensor(a, device=dev)
+            for a in (inst, ids, np.ones((b, n), bool), th)]
+
+
+def layouts_in(row) -> list:
+    """The kernel layouts (the routes inside one kernel's source, as
+    ``resample_route`` names them) that phase 3 ran, from a kernel's row."""
+    found = set()
+
+    def walk(x):
+        if isinstance(x, dict):
+            if isinstance(x.get("layout"), str):
+                found.add(x["layout"])
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    walk(row)
+    return sorted(found)
 
 
 def build_model(cfg):
@@ -1320,7 +1477,7 @@ def main() -> int:
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": sum(by_path.values()), **by_path,
-                        **rows[k.name]})
+                        **rows[k.name], "layouts": layouts_in(rows[k.name])})
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

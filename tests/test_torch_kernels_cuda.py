@@ -98,11 +98,11 @@ def test_resample_every_route_by_name(dev, dtype, route):
     img = torch.rand(3, 19, 35, c, generator=g).to(dtype).to(dev)
     flow = ((torch.rand(3, 19, 35, 2, generator=g) - 0.5) * 16).to(dev)
     mask = torch.rand(3, 19, 35, 1, generator=g).to(dev)
-    assert torch.equal(wk._launch(img, flow, mask, route),
+    assert torch.equal(wk._launch(img, flow, mask, route=route),
                        wk.resample_plain(img, flow, mask))
     if route == "vec":
         with pytest.raises(RuntimeError):      # a shape the route cannot take
-            wk._launch(img[..., :3].contiguous(), flow, mask, route)
+            wk._launch(img[..., :3].contiguous(), flow, mask, route=route)
 
 
 # (B, H, W, largest |flow|): the serving shape; flows shorter and longer than
@@ -194,7 +194,7 @@ def test_winner_kernel_matches_plain(dev, shape):
 def _special_thetas(kind, th, rng):
     """half: axis-aligned half-integer pixel translations (no sample near a
     threshold); zoom: node 0 rotated by 1 rad and zoomed out 6x, whose
-    regions overflow the staging budget (the in-kernel gather branch);
+    regions exceed mb.WIN_MAX pixels (a strong zoom-out);
     wild: every affine random at scale 3 (flips, off-image, far zooms)."""
     b, n, t, _ = th.shape
     if kind == "half":
@@ -413,3 +413,161 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                     # thetas not float32
         mb.warp_masks_winner_banded(
             inst, ids, valid, torch.zeros(1, 2, 1, 6, device=dev).double())
+
+
+def _frames_inputs(shape, frames, dtype, masked, dev, seed=11):
+    """An image [B,H,W,C] and flow, mask, upstream gradient for its
+    B*frames output rows."""
+    b, h, w, c = shape
+    g = _gen(seed)
+    img = torch.rand(b, h, w, c, generator=g).to(dtype).to(dev)
+    n = b * frames
+    flow = ((torch.rand(n, h, w, 2, generator=g) - 0.5) * 16).to(dev)
+    mask = torch.rand(n, h, w, 1, generator=g).to(dev) if masked else None
+    gout = torch.randn(n, h, w, c, generator=g).to(dtype).to(dev)
+    return img, flow, mask, gout
+
+
+def _close(got, want, name, dtype):
+    """The gradient tolerances of chip_smoke.py: 2e-5 of the largest
+    gradient (float32 sums in another order), 2^-7 for a bfloat16 image
+    gradient (one rounding of such a sum)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    tol = 2 ** -7 if (name == "image" and dtype == torch.bfloat16) else 2e-5
+    scale = max(want.float().abs().max().item(), 1e-6)
+    assert (got.float() - want.float()).abs().max().item() / scale <= tol, name
+
+
+@pytest.mark.parametrize("frames", [1, 5, 10])
+@pytest.mark.parametrize("c", [1, 2, 3, 8, 64, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resample_frames_forward_and_backward(dev, dtype, c, frames):
+    """One image for `frames` output rows: the forward equals the forward of
+    the repeated image bit for bit, and the gradients equal autograd of the
+    plain version (which repeats the image), the image gradient summed over
+    its frames."""
+    img, flow, mask, gout = _frames_inputs((2, 9, 13, c), frames, dtype, True,
+                                           dev)
+    rep = img.repeat_interleave(frames, dim=0)
+    for m in (None, mask):
+        got = (wk.resample(img, flow, frames=frames) if m is None
+               else wk.resample_masked(img, flow, m, frames=frames))
+        want = (wk.resample(rep, flow) if m is None
+                else wk.resample_masked(rep, flow, m))
+        assert got.shape == (2 * frames, 9, 13, c)
+        assert torch.equal(got, want)
+        assert torch.equal(got, wk.resample_plain(img, flow, m, frames))
+
+    def kernel(i, f, m):
+        return wk.resample_masked(i, f, m, frames=frames)
+
+    def plain(i, f, m):
+        return wk.resample_plain(i, f, m, frames)
+
+    got = _grads(kernel, img, flow, mask, gout, (True,) * 3)
+    want = _grads(plain, img, flow, mask, gout, (True,) * 3)
+    for name, a, b in zip(("image", "flow", "mask"), got, want):
+        _close(a, b, name, dtype)
+
+
+@pytest.mark.parametrize("frames", [1, 5])
+@pytest.mark.parametrize("route", sorted(wk.BACKWARD_ROUTES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resample_backward_every_route_by_name(dev, dtype, route, frames):
+    """Each kernel of csrc/resample_bwd.cu on a shape it takes, against
+    autograd of the plain version; the vec and pixel routes store the flow
+    and mask gradients without atomics, in the order of
+    resample_backward_plain: equal to it and to themselves bit for bit."""
+    c = 3 if route == "pixel" else 64
+    img, flow, mask, gout = _frames_inputs((3, 19, 35, c), frames, dtype,
+                                           True, dev, seed=12)
+    runs = [wk._launch_backward(gout, img, flow, mask, True, True, True,
+                                frames, route=route) for _ in range(2)]
+    want = _grads(lambda i, f, m: wk.resample_plain(i, f, m, frames), img,
+                  flow, mask, gout, (True,) * 3)
+    for name, a, b in zip(("image", "flow", "mask"), runs[0], want):
+        _close(a, b, name, dtype)
+    if route != "scalar64":
+        order = wk.resample_backward_plain(gout, img, flow, mask, frames,
+                                           route=route)
+        for k in (1, 2):
+            assert torch.equal(runs[0][k], runs[1][k])
+            assert torch.equal(runs[0][k], order[k])
+    if route == "vec":
+        with pytest.raises(RuntimeError):      # a shape the route cannot take
+            wk._launch_backward(gout[..., :3].contiguous(),
+                                img[..., :3].contiguous(), flow, mask, True,
+                                True, True, frames, route=route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 8, 64])
+def test_resample_backward_on_unaligned_views(dev, dtype, c):
+    """Image and upstream gradient as contiguous views that do not start on
+    16 bytes: the scalar64 route, the same gradients."""
+    img, flow, mask, gout = _frames_inputs((2, 17, 33, c), 5, dtype, True,
+                                           dev, seed=13)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    before = (wk.RESAMPLE_BWD_F32 if dtype == torch.float32
+              else wk.RESAMPLE_BWD_BF16).launches
+    got = wk._launch_backward(shifted(gout), shifted(img), flow, mask, True,
+                              True, True, 5)
+    assert (wk.RESAMPLE_BWD_F32 if dtype == torch.float32
+            else wk.RESAMPLE_BWD_BF16).launches == before + 1
+    want = _grads(lambda i, f, m: wk.resample_plain(i, f, m, 5), img, flow,
+                  mask, gout, (True,) * 3)
+    for name, a, b in zip(("image", "flow", "mask"), got, want):
+        _close(a, b, name, dtype)
+
+
+def _wide_objects(inst, ids):
+    """Every node an image-wide object: a band of rows per node, so that
+    every tile's window meets every box (K3 skips nothing)."""
+    b, h, w = inst.shape
+    n = ids.shape[1]
+    for k in range(n):
+        inst[:, (k * h) // n:((k + 1) * h) // n or h, :] = ids[0, k]
+    for k in range(n):
+        inst[:, :, (k * w) // n] = ids[0, k]      # a column across the map
+    return inst
+
+
+@pytest.mark.parametrize("kind", ["general", "wide", "zoom"])
+@pytest.mark.parametrize("shape", [(2, 1, 3, 50, 70), (2, 24, 3, 64, 128),
+                                   (1, 100, 2, 96, 160),
+                                   (1, mb.NODES_MAX - 5, 2, 48, 96)])
+def test_banded_winner_at_node_counts(dev, shape, kind):
+    """K3 at N = 1, 24, 100 and near its limit, against K2 (equal) and the
+    plain winner, on objects of the usual size, image-wide objects and the
+    zoom case."""
+    b, n, t, h, w = shape
+    inst, ids, valid, th = _raster_inputs(*shape, seed=14)
+    if kind == "wide":
+        inst = _wide_objects(inst, ids)
+    if kind == "zoom":
+        th = _special_thetas("zoom", th, np.random.RandomState(15))
+        inst[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = ids[0, 0]
+        valid[:, 0] = True
+    args = [torch.as_tensor(a, device=dev) for a in (inst, ids, valid, th)]
+    got = mb.warp_masks_winner_banded(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.warp_masks_winner(*args))
+    assert (got != mk.warp_masks_winner_plain(*args)).float().mean().item() \
+        <= 1e-4
+
+
+def test_banded_winner_refuses_what_it_cannot_take(dev):
+    inst = torch.zeros(1, 16, 32, device=dev)
+    n = mb.NODES_MAX + 1
+    ids = torch.ones(1, n, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, n, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        mb.warp_masks_winner_banded(inst, ids, valid,
+                                    torch.zeros(1, n, 1, 6, device=dev))

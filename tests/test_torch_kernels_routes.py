@@ -228,3 +228,91 @@ def test_pixel_route_addressing_matches_plain_exactly(c, w, h, masked):
         got = wk.resample_pixel_route_plain(image, flow, mask)
         assert got.dtype == image.dtype
         assert torch.equal(got, want)
+
+
+# the shapes the paths give K1's backward (output rows: folded frames) and
+# the route each takes: the decoder skips, bottlenecks, the warped loss and
+# the flow consistency
+BACKWARD_PATH_ROUTES = (
+    [(BF16, (15, *hwc), "vec") for hwc in JOURNAL_SKIPS]
+    + [(BF16, (10, *hwc), "vec") for hwc in LONG_SKIPS]
+    + [(F32, (15, 16, 32, 256), "vec"), (F32, (15, 128, 256, 3), "pixel"),
+       (F32, (10, 512, 1024, 3), "pixel"), (F32, (15, 128, 256, 2), "pixel")])
+BACKWARD_OTHER_ROUTES = [
+    (BF16, (2, 17, 33, 4), "vec"), (F32, (2, 17, 33, 1), "pixel"),
+    (BF16, (2, 17, 33, 3), "pixel"), (F32, (2, 17, 33, 4), "vec"),
+    (BF16, (2, 17, 33, 40), "vec"), (BF16, (2, 17, 33, 12), "vec"),
+    # neither layout: the first version
+    (F32, (2, 17, 33, 5), "scalar64"), (BF16, (2, 17, 33, 6), "scalar64"),
+    (F32, (1, 9, 7, 37), "scalar64"),
+    (F32, (1, 50000, 50000, 1), "scalar64"),
+    (BF16, (1, 20000, 20000, 8), "scalar64")]
+
+
+@pytest.mark.parametrize("dtype,shape,want",
+                         BACKWARD_PATH_ROUTES + BACKWARD_OTHER_ROUTES)
+def test_resample_backward_route(dtype, shape, want):
+    assert wk.resample_backward_route(dtype, shape) == want
+    assert want in wk.BACKWARD_ROUTES
+    assert wk.resample_backward_route(dtype, shape, aligned=False) == \
+        "scalar64"
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (BF16, 64, (4, 16)), (BF16, 128, (4, 32)), (BF16, 256, (4, 32)),
+    (BF16, 512, (4, 32)), (BF16, 40, (4, 16)), (BF16, 8, (4, 2)),
+    (F32, 256, (4, 32)), (F32, 4, (4, 1)), (F32, 12, (4, 4))])
+def test_backward_lane_group(dtype, c, want):
+    """A lane's piece of 4 channels and the lanes of a pixel where its flow
+    and mask sums are taken: min(C/4, 32) rounded up to a power of two, so
+    that a group never straddles a warp."""
+    assert wk.resample_backward_route(dtype, (2, 5, 7, c)) == "vec"
+    assert wk.backward_lane_group(c, "vec") == want
+    assert wk.backward_lane_group(3, "pixel") == (3, 1)
+
+
+# (image shape, frames, dtype): C on the vec route from one lane to more
+# pieces than lanes, the pixel route at C = 1..3; frames 1 and 5
+DECOMPOSED = [((2, 9, 13, 8), 1, BF16), ((2, 9, 13, 64), 5, BF16),
+              ((1, 5, 7, 512), 3, BF16), ((2, 9, 13, 40), 2, BF16),
+              ((2, 9, 13, 12), 5, F32), ((2, 9, 13, 256), 1, F32),
+              ((3, 17, 9, 3), 5, F32), ((2, 6, 5, 2), 1, F32),
+              ((2, 6, 5, 1), 2, BF16)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape,frames,dtype", DECOMPOSED)
+def test_backward_decomposition_matches_autograd(shape, frames, dtype,
+                                                 masked):
+    """resample_backward_plain, the work as the vec and pixel routes split
+    it (per-tap index_add_ of the image gradient into one image for all its
+    frames, per-pixel channel sums in lane-group order), equals autograd of
+    the plain version: 2e-5 of the largest gradient (float32 sums in another
+    order), 2^-7 for a bfloat16 image gradient (one rounding of such a sum
+    may land on the neighbouring bfloat16 value)."""
+    b, h, w, c = shape
+    rng = np.random.RandomState(zlib.crc32(repr((shape, frames)).encode()))
+    img = torch.as_tensor(rng.rand(*shape).astype(np.float32)).to(dtype)
+    n = b * frames
+    flow = torch.as_tensor(((rng.rand(n, h, w, 2) - 0.5) * 20)
+                           .astype(np.float32))
+    mask = (torch.as_tensor(rng.rand(n, h, w, 1).astype(np.float32))
+            if masked else None)
+    gout = torch.as_tensor(rng.randn(n, h, w, c).astype(np.float32)).to(dtype)
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in (img, flow, mask)]
+    out = wk.resample_plain(*leaves, frames)
+    want = torch.autograd.grad(out, [t for t in leaves if t is not None],
+                               gout)
+    got = wk.resample_backward_plain(gout, img, flow, mask, frames)
+    assert (got[2] is None) == (not masked)
+    for name, a, b_ in zip(("image", "flow", "mask"), got, want):
+        assert a.dtype == b_.dtype and a.shape == b_.shape, name
+        tol = 2 ** -7 if (name == "image" and dtype == BF16) else 2e-5
+        scale = max(b_.float().abs().max().item(), 1e-6)
+        assert (a.float() - b_.float()).abs().max().item() / scale <= tol, name
+    # each gradient alone is its part of the full set
+    alone = wk.resample_backward_plain(gout, img, flow, mask, frames,
+                                       needs=(False, True, False))
+    assert alone[0] is None and alone[2] is None
+    assert torch.equal(alone[1], got[1])

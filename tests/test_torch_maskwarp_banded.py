@@ -304,3 +304,60 @@ def test_a_skipped_node_has_no_matching_tap_in_the_tile(kind):
     if kind in ("gt", "gnn"):
         assert hits > 0 and plan["skip"][:, :n - 1].any() \
             and not plan["skip"][:, :n - 1].all()
+
+
+def _plan_inputs(kind, seed, b=2, n=40, t=3, h=64, w=128):
+    """Objects of a few tiles on a 64x128 map, thetas of ``kind``; more
+    nodes than one 32-bit word of live bits."""
+    rng = np.random.RandomState(seed)
+    inst = np.zeros((b, h, w), np.float32)
+    for bi in range(b):
+        for k in range(n):
+            y0, x0 = rng.randint(0, h - 16), rng.randint(0, w - 32)
+            inst[bi, y0:y0 + rng.randint(3, 16),
+                 x0:x0 + rng.randint(3, 32)] = 100 + k
+    ids = np.tile(100 + np.arange(n, dtype=np.int32), (b, 1))
+    valid = rng.rand(b, n) > 0.2
+    th = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (b, n, t, 1))
+    if kind == "wild":
+        th = (rng.randn(b, n, t, 6) * 3.0).astype(np.float32)
+    else:
+        th[..., 0] += rng.randn(b, n, t) * 0.05
+        th[..., 4] += rng.randn(b, n, t) * 0.05
+        th[..., 1] = rng.randn(b, n, t) * 0.03
+        th[..., 3] = rng.randn(b, n, t) * 0.03
+        th[..., 2] = rng.randn(b, n, t) * 0.2
+        th[..., 5] = rng.randn(b, n, t) * 0.2
+    return [torch.as_tensor(a) for a in (inst, ids, valid, th)]
+
+
+@pytest.mark.parametrize("kind", ["gnn", "wild"])
+def test_tile_masks_are_the_window_verdicts_bit_for_bit(kind):
+    """The plan's live-node ballots, laid out per (b, t, tile) as the
+    kernel's warps hold them, unpack to exactly the (tile, node) pairs that
+    source_windows_plain does not skip; ``tiles`` holds exactly the tiles
+    with a live node."""
+    args = _plan_inputs(kind, 3)
+    b, n, t = args[3].shape[:3]
+    plan = maskwarp_banded.tile_masks_plain(*args)
+    boxes = maskwarp_banded.node_boxes_plain(*args[:3])
+    skip = maskwarp_banded.source_windows_plain(args[3], 64, 128,
+                                                boxes=boxes)["skip"]
+    masks = plan["masks"]
+    assert masks.shape == (b * t * 4 * 4, 2)
+    assert int(masks.max()) < 2 ** 32 and int(masks.min()) >= 0
+    bits = ((masks[..., None] >> torch.arange(32)) & 1).reshape(-1, 64)[:, :n]
+    want = ~skip.permute(0, 2, 3, 4, 1).reshape(-1, n)
+    assert torch.equal(bits.bool(), want)
+    assert torch.equal(plan["tiles"], torch.nonzero(want.any(-1)).flatten())
+    assert 0 < plan["tiles"].numel() < masks.shape[0]
+
+
+@pytest.mark.parametrize("kind", ["gnn", "wild"])
+def test_winner_from_the_plan_alone_matches_plain(kind):
+    """Zeros in the tiles without a live node, and in the others only the
+    nodes their bits name, in node order: the plain winner exactly, at
+    64x128."""
+    args = _plan_inputs(kind, 4)
+    got = maskwarp_banded.warp_masks_winner_planned_plain(*args)
+    assert torch.equal(got, maskwarp_kernel.warp_masks_winner_plain(*args))

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``c2m_tpu_torch/`` and not
-``chip_smoke.py`` imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
+``chip_smoke.py`` or ``kernel_ab.py`` imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
 ``optax``, at top level or inside any function. Every source is parsed with
 ``ast`` (docstrings that name the counterpart file are not imports and
 stay). Each entry point defaults to the card and says so where there is
@@ -19,7 +19,8 @@ FORBIDDEN = {"c2m_tpu", "jax", "jaxlib", "flax", "optax"}
 
 
 def _sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "kernel_ab.py")]
     for root, _, files in os.walk(os.path.join(REPO, "c2m_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)

@@ -128,3 +128,49 @@ def test_forward_matches_pallas_kernel_in_interpret_mode(monkeypatch):
     got = resample_masked(torch.as_tensor(img), torch.as_tensor(flow),
                           torch.as_tensor(mask)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("frames", [2, 5])
+def test_frames_per_image_match_the_repeated_image(frames, masked):
+    """One image for ``frames`` output rows (output row i reads image row
+    i // frames): forward and gradients equal those of the image repeated
+    ``frames`` times; against jax.grad on the repeated image, its image
+    gradient summed over the copies, at 1e-5 abs + 1e-5 rel."""
+    b, h, w, c = 2, 9, 13, 5
+    img, flow, mask, gout = _inputs((b * frames, h, w, c), 7, 20.0)
+    img = img[:b]
+    rep = np.repeat(img, frames, axis=0)
+
+    def port(image, f, m, fr):
+        return (resample_masked(image, f, m, frames=fr) if masked
+                else resample(image, f, frames=fr))
+
+    grads = []
+    for image, fr in ((img, frames), (rep, 1)):
+        ti, tf, tm = (torch.tensor(a, requires_grad=True)
+                      for a in (image, flow, mask))
+        out = port(ti, tf, tm, fr)
+        assert out.shape == (b * frames, h, w, c)
+        (out * torch.as_tensor(gout)).sum().backward()
+        grads.append((out.detach(), ti.grad, tf.grad, tm.grad))
+    (out1, gi1, gf1, gm1), (out2, gi2, gf2, gm2) = grads
+    assert torch.equal(out1, out2)
+    assert torch.equal(gf1, gf2)
+    if masked:
+        assert torch.equal(gm1, gm2)
+    # the repeated image's gradient, summed over its copies
+    torch.testing.assert_close(gi1, gi2.reshape(b, frames, h, w, c).sum(1),
+                               rtol=1e-6, atol=1e-6)
+
+    def jloss(i, f, m):
+        out = jax_resample(jnp.repeat(i, frames, axis=0), f, use_pallas=False)
+        if masked:
+            out = out * m
+        return jnp.sum(out * gout)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(img), jnp.asarray(flow), jnp.asarray(mask))
+    for got, w_ in zip((gi1, gf1) + ((gm1,) if masked else ()), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w_), rtol=1e-5,
+                                   atol=1e-5)
