@@ -84,6 +84,11 @@ class C2MGenerator(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
+        # the JAX generator keys its warped-image branch on the dataset name
+        # (c2m_tpu/models/generator.py); refuse before any weight is built
+        if "kitti" in cfg.dataset_params.dataset:
+            raise NotImplementedError(
+                "the KITTI generator (warped-image branch) is not ported yet")
         self.cfg = cfg
         mp, tp = cfg.model_params, cfg.train_params
         me = mp.motion_estimator

@@ -20,8 +20,15 @@ CORRELATION = hopper.Kernel("correlation", "c2m_tpu_torch/csrc/correlation.cu",
                             "c2m_tpu/ops/pallas/correlation_kernel.py:58")
 KERNELS = (CORRELATION,)
 
-_SMEM_LIMIT = 48 * 1024     # static limit of a block's shared memory
-_XT = 8                     # pixels per block (csrc/correlation.cu)
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _tiles_per_row(md: int, stride: int) -> int:
+    """Threads csrc/correlation.cu gives one displacement row of a block:
+    a tile of 4 pixels by 21 displacements each, over a run of 16 * stride
+    pixels. A block has at most 256 threads."""
+    d = 2 * (md // stride) + 1
+    return 4 * stride * -(-d // 21)
 
 
 def correlation_plain(a: torch.Tensor, b: torch.Tensor,
@@ -55,11 +62,14 @@ def _launch(a: torch.Tensor, b: torch.Tensor, md: int, stride: int
     req(a.is_contiguous() and b.is_contiguous(), "a, b must be contiguous")
     bsz, h, w, c = a.shape
     d = 2 * (md // stride) + 1
-    req((_XT * c + _XT * d * d) * 4 <= _SMEM_LIMIT,
-        f"C={c} with {d * d} displacements exceeds the kernel's shared memory")
     out = torch.empty(bsz, h, w, d * d, dtype=torch.float32, device=a.device)
     if out.numel() == 0 or c == 0:
         return out.zero_()
+    req(_tiles_per_row(md, stride) <= 256,
+        f"max_displacement {md} at stride {stride} needs more than a block's "
+        f"256 threads")
+    req(bsz <= 65535 and h <= 65535 and w * d * d <= _INT32_MAX,
+        "map too large for the kernel's grid and 32-bit offsets")
     fn = (hopper.library().c2m_correlation_f32 if a.dtype == torch.float32
           else hopper.library().c2m_correlation_bf16)
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, w, c, md,

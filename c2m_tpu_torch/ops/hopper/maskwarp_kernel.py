@@ -4,7 +4,9 @@ Replaces the Pallas kernel ``_call`` / ``_kernel`` in
 ``c2m_tpu/ops/pallas/maskwarp_kernel.py`` together with the winner
 reduction that follows it in ``c2m_tpu/ops/raster.py:325-330``. CUDA source:
 ``csrc/maskwarp.cu``. The warped stack [B, N, T, H, W] is never written: the
-kernel emits the winner map [B, T, H, W] directly.
+kernel emits the winner map [B, T, H, W] directly. A block owns a 32x8 tile
+of one (b, t), stages that step's valid nodes in shared memory and visits
+them last to first, each pixel stopping at its first covered node.
 
 A CPU tensor takes :func:`warp_masks_winner_plain`; a CUDA tensor launches
 the kernel or raises.
@@ -96,6 +98,8 @@ def _launch(instance, inst_ids, valid, thetas):
     if winner.numel() == 0:
         return winner
     b, t, h, w = winner.shape
+    hopper.require(b * t <= 65535 and h <= 65535 * 8 and h * w < 2 ** 31,
+                   f"warp_masks_winner: [{b},{t},{h},{w}] exceeds the grid")
     err = hopper.library().c2m_warp_masks_winner(
         instance.data_ptr(), ids.data_ptr(), valid_i.data_ptr(),
         # the threshold as the plain version's comparison rounds it: the

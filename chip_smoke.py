@@ -36,7 +36,9 @@ Phases (any failure raises and the script exits non-zero):
      other, timed around one call and device alone in turns, with K3's
      passes apart: at both kernels' path shapes, for GT-like, GNN-like and
      window-overflowing thetas, on image-wide objects and with N near K3's
-     node limit;
+     node limit; K2's bound counts the (pixel, node) pairs its function
+     needs with the nodes visited last to first, from the plain winner. K5
+     is timed around one call and device alone;
   4. a ServingModel at the journal config's full width
      (configs/c2m_journal_cityscapes.yaml, bfloat16 compute, batch bucket
      12), random weights from a seeded torch.Generator, answering three
@@ -663,33 +665,12 @@ def phase_kernels(dev):
     def maskwarp_case(b, role):
         """K2 at [B, N, H, W] x [B, N, T, 6] = [b, 16, 128, 256] x [b, 16, 5, 6],
         K3 on the same inputs."""
-        n, t, h, w = 16, 5, 128, 256
-        rng = np.random.RandomState(SEED)
-        inst = np.zeros((b, h, w), np.float32)
-        for bi in range(b):
-            for k in range(n):
-                y0, x0 = rng.randint(0, h - 32), rng.randint(0, w - 64)
-                inst[bi, y0:y0 + rng.randint(8, 32),
-                     x0:x0 + rng.randint(8, 64)] = 26001 + k
-        ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
-        th = np.zeros((b, n, t, 6), np.float32)
-        th[..., 0] = 1 + rng.randn(b, n, t) * 0.05
-        th[..., 4] = 1 + rng.randn(b, n, t) * 0.05
-        th[..., 1] = rng.randn(b, n, t) * 0.03
-        th[..., 3] = rng.randn(b, n, t) * 0.03
-        th[..., 2] = rng.randn(b, n, t) * 0.1
-        th[..., 5] = rng.randn(b, n, t) * 0.1
-        args = [torch.as_tensor(a, device=dev)
-                for a in (inst, ids, np.ones((b, n), bool), th)]
+        args = maskwarp_inputs(b, dev)
         both = k2_and_k3(args, TOL_FLIP, f"warp_masks_winner {role}")
-        # per output pixel 6 operations for its base coordinates, and per
-        # valid node ~30 (affine, source coordinate, bilinear weights,
-        # interpolation)
-        n_valid = int(args[2].sum().item()) * t * h * w
-        bd = bound(nbytes(*args) + 4 * b * t * h * w,
-                   6 * b * t * h * w + 30 * n_valid)
+        bd = k2_bound(args, mk.warp_masks_winner_plain(*args))
         log(f"  warp_masks_winner {role}: bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']})  no single library call")
+            f"({bd['bound_by']}), {bd['pairs']} (pixel, node) pairs needed  "
+            f"no single library call")
         return {"max_abs_err": both["mismatch_vs_plain"], "ms": both["k2_ms"],
                 "device_ms": both["k2_device_ms"],
                 "plain_ms": both["plain_ms"], "library_ms": None,
@@ -753,6 +734,7 @@ def phase_kernels(dev):
         got = run()
         err = (got - plain()).abs().max().item()
         ms, plain_ms = time_ms(run), time_ms(plain, reps=3, warmup=1)
+        dev_ms = device_ms(run)
         # 2 C operations per (pixel, displacement) pair that stays inside
         # the image; pairs that leave it are zeros and cost nothing
         bsz, h, w, c = shape
@@ -761,12 +743,14 @@ def phase_kernels(dev):
         nx = sum(1 for x in range(w) for d in steps if 0 <= x + d < w)
         bd = bound(nbytes(a, b, got), 2 * c * bsz * ny * nx)
         log(f"  correlation {role} {list(shape)} -> {list(got.shape)}: "
-            f"max|diff| {err:.3g} (tol {TOL_CORR})  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']})  no single library call")
+            f"max|diff| {err:.3g} (tol {TOL_CORR})  kernel {ms:.4f} ms  "
+            f"device alone {dev_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
+            f"call")
         check(err <= TOL_CORR, f"correlation {shape}: max|diff| {err}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "shape": list(shape), **bd}
+        return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "library_ms": None,
+                "shape": list(shape), **bd}
 
     rows["warp_masks_winner"] = maskwarp_case(12, "serving")
     train["warp_masks_winner"] = maskwarp_case(3, "train")
@@ -821,6 +805,53 @@ def phase_kernels(dev):
         wk.RESAMPLE_BWD_F32, torch.float32, (10, 512, 1024, 3), False,
         (False, True, False), "long_horizon_train", frames=10)
     return rows
+
+
+def maskwarp_inputs(b, dev, n=16, t=5, h=128, w=256):
+    """Instance map, ids, valid and thetas of K2's journal shape
+    [b, n, h, w] x [b, n, t, 6]: objects of 8-32 x 8-64 pixels, small scale,
+    shear and translation noise, every node valid."""
+    rng = np.random.RandomState(SEED)
+    inst = np.zeros((b, h, w), np.float32)
+    for bi in range(b):
+        for k in range(n):
+            y0, x0 = rng.randint(0, h - 32), rng.randint(0, w - 64)
+            inst[bi, y0:y0 + rng.randint(8, 32),
+                 x0:x0 + rng.randint(8, 64)] = 26001 + k
+    ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
+    th = np.zeros((b, n, t, 6), np.float32)
+    th[..., 0] = 1 + rng.randn(b, n, t) * 0.05
+    th[..., 4] = 1 + rng.randn(b, n, t) * 0.05
+    th[..., 1] = rng.randn(b, n, t) * 0.03
+    th[..., 3] = rng.randn(b, n, t) * 0.03
+    th[..., 2] = rng.randn(b, n, t) * 0.1
+    th[..., 5] = rng.randn(b, n, t) * 0.1
+    return [torch.as_tensor(a, device=dev)
+            for a in (inst, ids, np.ones((b, n), bool), th)]
+
+
+def k2_pairs(valid, winner) -> int:
+    """The (pixel, node) pairs the winner function needs when the valid
+    nodes are visited last to first: a pixel won by node k visits the valid
+    nodes from the last down to k; a background pixel visits them all."""
+    b, n = valid.shape
+    # after[b, k] = valid nodes with index >= k; after[b, 0] = all of them
+    after = valid.flip(1).long().cumsum(1).flip(1)
+    start = (winner.long() - 1).clamp(min=0).reshape(b, -1)
+    return int(after.gather(1, start).sum().item())
+
+
+def k2_bound(args, winner) -> dict:
+    """K2's bound on these inputs: per output pixel 6 operations for its
+    base coordinates, ~30 per (pixel, node) pair that the function needs
+    (affine, source coordinate, bilinear weights, interpolation), counted
+    from the plain winner by :func:`k2_pairs`. Bytes: inputs read, winner
+    written."""
+    b, h, w = args[0].shape
+    t = args[3].shape[2]
+    pairs = k2_pairs(args[2], winner)
+    return {**bound(nbytes(*args) + 4 * b * t * h * w,
+                    6 * b * t * h * w + 30 * pairs), "pairs": pairs}
 
 
 def banded_inputs(b, kind, dev, n=24, t=10, h=512, w=1024):

@@ -191,6 +191,51 @@ def test_winner_kernel_matches_plain(dev, shape):
     assert (got != want).float().mean().item() <= 1e-4
 
 
+def _winner_case(case):
+    """K2's edge cases at ragged map sizes (no multiple of the 32x8 tile):
+    more nodes than one shared-memory chunk, no valid node, one node, two
+    valid nodes with the same id whose warped masks overlap (the later one
+    must win), and thetas so large that the kernel skips its quick test."""
+    if case == "many_nodes":
+        inst, ids, valid, th = _raster_inputs(2, 600, 2, 50, 70, seed=16)
+    elif case == "none_valid":
+        inst, ids, valid, th = _raster_inputs(2, 5, 3, 37, 45, seed=17)
+        valid[:] = False
+    elif case == "one_node":
+        inst, ids, valid, th = _raster_inputs(3, 1, 2, 19, 33, seed=18)
+        valid[:] = True
+    elif case == "huge_thetas":             # beyond the quick tap test
+        inst, ids, valid, th = _raster_inputs(2, 6, 2, 40, 72, seed=20)
+        th[:, ::2] *= 2e3
+        th[:, ::2, :, 2] = -th[:, ::2, :, 0] * 0.1   # some land inside
+    else:                                   # "same_id"
+        inst, ids, valid, th = _raster_inputs(2, 4, 3, 41, 67, seed=19)
+        ids[:, 2] = ids[:, 1]
+        valid[:, 1:3] = True
+        th[:, 2] = th[:, 1]
+        th[:, 2, :, 2] += 0.02              # mostly overlapping
+    return inst, ids, valid, th
+
+
+@pytest.mark.parametrize("case", ["many_nodes", "none_valid", "one_node",
+                                  "same_id", "huge_thetas"])
+def test_winner_kernel_edge_cases(dev, case):
+    inst, ids, valid, th = _winner_case(case)
+    args = [torch.as_tensor(a, device=dev) for a in (inst, ids, valid, th)]
+    before = mk.WARP_MASKS_WINNER.launches
+    got = mk.warp_masks_winner(*args)
+    torch.cuda.synchronize()
+    assert mk.WARP_MASKS_WINNER.launches == before + 1
+    # K2 and K3 evaluate the same float32 expression per pixel and node
+    assert torch.equal(got, mb.warp_masks_winner_banded(*args))
+    want = mk.warp_masks_winner_plain(*args)
+    assert (got != want).float().mean().item() <= 1e-4
+    if case == "none_valid":
+        assert not got.any()
+    if case == "same_id":                   # node 2 (rank 3) wins the overlap
+        assert (got == 3).any() and (got == 3).sum() > (got == 2).sum()
+
+
 def _special_thetas(kind, th, rng):
     """half: axis-aligned half-integer pixel translations (no sample near a
     threshold); zoom: node 0 rotated by 1 rad and zoomed out 6x, whose
@@ -259,6 +304,40 @@ def test_correlation_kernel_matches_plain(dev, shape, md, stride, dtype):
     # the same float32 products (bfloat16 inputs widened first) summed over
     # C <= 256 channels in another order; means of order 1
     assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,md,stride", [
+    ((1, 5, 45, 16), 4, 2),       # W no multiple of the block's run
+    ((2, 6, 70, 33), 8, 2),       # C no multiple of the channel chunk
+    ((2, 6, 9, 12), 0, 1),        # md = 0: one displacement
+    ((1, 7, 40, 7), 20, 1),       # stride 1, 41 displacements, C odd
+    ((1, 11, 50, 24), 9, 3),      # stride 3
+    ((1, 40, 20, 16), 20, 2),     # more displacement rows than one wave
+    ((1, 2, 2, 4096), 20, 2)])    # any C: the chunks carry it
+def test_correlation_kernel_at_ragged_geometry(dev, shape, md, stride, dtype):
+    g = _gen(9)
+    a = torch.randn(shape, generator=g).to(dtype).to(dev)
+    b = torch.randn(shape, generator=g).to(dtype).to(dev)
+    got = ck.correlation(a, b, md, stride)
+    want = ck.correlation_plain(a, b, md, stride)
+    torch.cuda.synchronize()
+    d = 2 * (md // stride) + 1
+    assert got.shape == (*shape[:3], d * d)
+    # the same float32 products summed in another order; means of order 1
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_correlation_kernel_on_an_unaligned_view(dev):
+    """A view whose data_ptr() is not 16-byte aligned takes scalar loads."""
+    g = _gen(10)
+    shape = (2, 9, 13, 20)
+    n = int(np.prod(shape))
+    buf = torch.randn(2 * n + 1, generator=g).to(dev)
+    a, b = buf[1:n + 1].view(shape), buf[n + 1:].view(shape)
+    assert a.data_ptr() % 16 != 0
+    got = ck.correlation(a, b, 4, 2)
+    assert (got - ck.correlation_plain(a, b, 4, 2)).abs().max().item() <= 1e-5
 
 
 def _bwd_inputs(shape, dtype, masked, dev, seed=4):
@@ -404,9 +483,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         ck.correlation(feat.half(), feat.half())        # unsupported dtype
     with pytest.raises(ValueError):
         ck.correlation(feat, feat[:, :4])               # shapes differ
-    with pytest.raises(ValueError):                     # shared memory
-        ck.correlation(torch.rand(1, 2, 2, 4096, device=dev),
-                       torch.rand(1, 2, 2, 4096, device=dev))
+    big = torch.rand(1, 2, 2, 4096, device=dev)         # any C is taken
+    assert (ck.correlation(big, big) - ck.correlation_plain(big, big)
+            ).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError):     # one displacement row > 256 threads
+        ck.correlation(feat, feat, 2000, 1)
     inst = torch.zeros(1, 8, 8, device=dev)
     ids = torch.ones(1, 2, dtype=torch.int32, device=dev)
     valid = torch.ones(1, 2, dtype=torch.bool, device=dev)

@@ -8,6 +8,8 @@ its own config object: ``tiny_cfg`` makes the JAX package's, ``port_cfg``
 carries it into the port's dataclasses. The port runs on the CPU here.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,22 @@ from c2m_tpu.config import shrink_model, tiny_config
 from c2m_tpu.serving import unflatten_tree
 from c2m_tpu_torch import config as port_config
 from c2m_tpu_torch.data import synthetic as port_synthetic
+
+
+def share_cores():
+    """Under pytest-xdist, give each worker its share of the cores for
+    PyTorch's intra-op threads. Six workers that each start a thread per
+    core oversubscribe the CPU, and PyTorch's CPU kernels then wait on
+    threads that are not running: one port test file that takes 21 s alone
+    took minutes with five other copies of it beside it. Every worker
+    imports this module when it collects the suite, so the setting holds
+    for the whole run."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+share_cores()
 
 
 def tiny_cfg(max_objects: int = 4, batch_size: int = 2):
