@@ -8,15 +8,18 @@ under ``csrc/``, built with nvcc at first use and bound with ctypes
 version; a CUDA tensor launches the kernel or raises.
 
 Ported so far: the serving path (``C2MGenerator.inference`` behind
-``serving.ServingModel``) and the train step (``train.state``,
-``train.step`` around ``train.model.C2MTrainModel``). Public functions take
+``serving.ServingModel``, and ``serving.export_artifact``), the train step
+(``train.state``, ``train.step`` around ``train.model.C2MTrainModel``), and
+the program around it: ``data`` (datasets, loader), ``train.trainer``,
+``utils.checkpoint``, ``eval.evaluator``, with ``train_torch.py`` and
+``eval_torch.py`` at the repository's root. Public functions take
 channels-last tensors (``[B, H, W, C]``, ``[B, T, H, W, C]``), as the JAX
 package does. Entry points run on the card unless asked for the CPU.
 
 This package imports nothing of JAX and nothing of ``c2m_tpu``: it keeps its
-own copies of the framework-free parts it needs (``config.py``, the numpy
-scenes of ``data/synthetic.py``), and tests hold the copies to the
-originals.
+own copies of the framework-free parts it needs (``config.py``, ``data/``,
+the visual output in ``utils/``, the metric math in ``eval/``), and tests
+hold the copies to the originals.
 """
 
 __version__ = "0.1.0"

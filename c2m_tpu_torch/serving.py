@@ -13,6 +13,12 @@ directory (``variables.npz`` + ``meta.json`` + ``config.yaml``; the
 ``C2MGenerator``. Conv stacks run in ``train_params.dtype``. ``device=None``
 means the card, and an error where there is none; ``"cpu"`` must be asked
 for.
+
+:func:`export_artifact` writes such a directory from a port model (the
+counterpart of ``c2m_tpu/serving.export_artifact``): the generator's
+weights in the JAX layout, so that either package serves them. It writes
+no ``.stablehlo`` files, and its ``meta.json`` says so with
+``"platforms": []``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 
 from c2m_tpu_torch.device import resolve_device
 from c2m_tpu_torch.models.c2m import DTYPES, C2MGenerator
-from c2m_tpu_torch.utils.convert import from_jax_variables
+from c2m_tpu_torch.utils.convert import (flatten, from_jax_variables,
+                                         to_jax_variables)
 
 _FORMAT_VERSION = 1
 
@@ -44,6 +51,47 @@ def load_variables(path: str) -> Dict[str, np.ndarray]:
     (bfloat16 leaves were stored as float32 and stay float32 here)."""
     with np.load(path, allow_pickle=False) as data:
         return {k: data[k] for k in data.files if k != "__dtypes__"}
+
+
+def generator_variables(state_dict: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """A ``C2MTrainModel`` or ``C2MGenerator`` state_dict -> the JAX
+    ``C2MGenerator`` tree ({'params', 'batch_stats'}, numpy float32): of a
+    train model only the generator ``c2m``, as
+    ``c2m_tpu.serving.generator_variables`` selects it (discriminators and
+    VGG are not served)."""
+    if any(k.startswith("c2m.") for k in state_dict):
+        state_dict = {k[len("c2m."):]: v for k, v in state_dict.items()
+                      if k.startswith("c2m.")}
+    return to_jax_variables(state_dict, cfg)
+
+
+def export_artifact(out_dir: str, cfg, model: torch.nn.Module,
+                    batch_sizes: Sequence[int] = (1,)) -> None:
+    """Write a serving artifact directory (``variables.npz``, ``meta.json``,
+    ``config.yaml``; format version 1) from ``model``, a ``C2MTrainModel``
+    or ``C2MGenerator``. ``ServingModel.from_artifact`` reads it back, and
+    so does the JAX package's loader of ``variables.npz``."""
+    import yaml
+    os.makedirs(out_dir, exist_ok=True)
+    flat = flatten(generator_variables(model.state_dict(), cfg))
+    # the JAX writer's layout: '/'-joined paths plus a JSON map of the
+    # leaves stored as float32 in place of bfloat16 (none: parameters and
+    # statistics are float32)
+    np.savez(os.path.join(out_dir, "variables.npz"),
+             __dtypes__=json.dumps({}), **flat)
+    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+    meta = {
+        "format_version": _FORMAT_VERSION,
+        "batch_sizes": sorted(int(b) for b in batch_sizes),
+        "platforms": [],
+        "z_dim": z_dim(cfg),
+        "max_objects": int(cfg.dataset_params.max_objects),
+        "input_size": list(cfg.test_params.input_size),
+        "num_predicted_frames": int(cfg.test_params.num_predicted_frames),
+    }
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
 
 
 def z_dim(cfg) -> int:

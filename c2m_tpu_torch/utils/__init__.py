@@ -1,1 +1,2 @@
-"""Utilities of the port: the JAX -> PyTorch weight bridge."""
+"""Utilities of the port: the JAX <-> PyTorch weight bridge, checkpoints,
+and the visual output (copies of ``c2m_tpu/utils``)."""

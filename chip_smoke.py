@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: serving and
 the train step at the journal config (128x256) and at the long-horizon
-config (512x1024), and FlowNet2 on-the-fly flow feeding a train step.
+config (512x1024), FlowNet2 on-the-fly flow feeding a train step, and the
+program around the step (trainer, checkpoint and resume, evaluator,
+serving artifact) at the journal config.
 
     python3 chip_smoke.py [--profile]
 
@@ -71,7 +73,23 @@ Phases (any failure raises and the script exits non-zero):
  10. the rasterizer alone at one 512x1024 clip, card (K3, K4) vs CPU;
  11. two train steps at the long-horizon config, batch 1 (the YAML's 16 is
      one clip per chip of a 16-chip mesh), with the checks of phase 6; K1
-     forward and backward, K3 and K4 launched; step time and peak memory.
+     forward and backward, K3 and K4 launched; step time and peak memory;
+ 12. train -> checkpoint -> resume -> eval -> export at the journal config's
+     full width, in a temporary directory, on synthetic clips made by the
+     port's SyntheticDataset on the card and held in host memory: a
+     Trainer takes 4 steps of an epoch of 8 with print, display, sampled
+     eval and save firing (K1 forward and backward, K2, K4 launched; one
+     sampled eval alone launches K1, K2, K4); a second run takes 2 steps
+     and saves, and a fresh Trainer with continue_train resumes: the
+     checkpoint round trip bit for bit, the resumed steps on the unbroken
+     run's batches, lrs and generator state, their metrics within a
+     multiple of the card's own spread (steps 3 and 4 taken twice from the
+     saved state); the trainer's ms per step against bare steps on the
+     same batches; the Evaluator over 2 val batches of 12 (files written,
+     FID / FVD NaN without embedders) and a second pass that loads the
+     saved clicks; export_artifact -> ServingModel.from_artifact against
+     the trained model's inference; one trainer step with on-the-fly
+     FlowNet2 flow (K5 launched).
 With --profile, torch.profiler splits one warm train step and one warm
 request of each config by operator and by kernel (printed).
 
@@ -129,6 +147,16 @@ TOL_BWD_BF16 = 2.0 ** -7
 TOL_LOSS_REL = 1e-3
 TOL_GRAD_COS = 0.9995
 TOL_GRAD_NORM = 0.02
+# a resumed run's steps 3 and 4 against the unbroken run's, relative per
+# metric: both start from the state saved at step 2, and step 4's metrics
+# carry step 3's backward, which the card does not repeat bit for bit (K1
+# backward's float atomics, cuDNN's weight gradients). The gate is a
+# multiple of the spread measured in the same call (steps 3 and 4 taken
+# three times from the saved state, worst pair) plus a floor. The spread of
+# one step grows 3-4x a step after it (NVIDIA H100 80GB HBM3, 700 W), so a
+# comparison with a run that forked earlier would need another gate.
+TOL_RESUME_FACTOR = 5.0
+TOL_RESUME_FLOOR = 1e-5
 
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -137,6 +165,13 @@ FP32_FLOPS = 67e12      # float32 outside the tensor cores: all these kernels
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def release_memory() -> None:
+    """Hand a finished phase's cached blocks back, so that the next phase's
+    peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -969,7 +1004,6 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile):
     Returns the launch counts."""
     from c2m_tpu_torch.models.c2m import DTYPES
     from c2m_tpu_torch.serving import ServingModel
-    kernels = all_kernels()
     model = build_model(cfg).to(dev).use_compute_dtype(
         DTYPES[cfg.train_params.dtype])
     gt = ServingModel(model, buckets, use_gt_eval=True)
@@ -978,8 +1012,7 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile):
     reqs = requests(cfg, dev, sizes)
     h, w = cfg.test_params.input_size
     tpred = cfg.test_params.num_predicted_frames
-    for k in kernels:
-        k.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     warm_ms = {}
     for i, (batch, z, click) in enumerate(reqs):
@@ -1007,7 +1040,7 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile):
         log(f"  {name}: generated {list(gen.shape)} in [{gen.min():.3f}, "
             f"{gen.max():.3f}]; latency ms cold {times[0]:.1f}, warm "
             f"{times[1]:.1f}, {times[2]:.1f}")
-    counts = {k.name: k.launches for k in kernels}
+    counts = read_launches()
     log(f"  launches over the {len(reqs)} requests (3 calls each): {counts}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     # serving differentiates nothing: the backward kernels stay at 0
@@ -1094,6 +1127,17 @@ def all_kernels():
             + correlation_kernel.KERNELS)
 
 
+def reset_launches():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for k in all_kernels():
+        k.launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count, just after a path was driven."""
+    return {k.name: k.launches for k in all_kernels()}
+
+
 def train_batch(cfg, dev, batch_size, seed):
     """A synthetic training batch with all nodes real, as tensors on dev."""
     from c2m_tpu_torch.data.synthetic import make_batch
@@ -1125,8 +1169,7 @@ def phase_train(cfg, dev, profile: bool, phase: int = 6,
                for i in range(steps)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step = make_train_step(cfg)
-    for k in all_kernels():
-        k.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     history, times = [], []
     for batch in batches:
@@ -1136,7 +1179,7 @@ def phase_train(cfg, dev, profile: bool, phase: int = 6,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         history.append({k: float(v) for k, v in metrics.items()})
-    counts = {k.name: k.launches for k in all_kernels()}
+    counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     for i, m in enumerate(history):
@@ -1248,9 +1291,7 @@ def phase_onthefly(cfg, dev):
         f"{pairs} frame pairs of {tp.input_size} per call, feeding one train "
         f"step with use_pre_processed_of: false")
     batch = train_batch(cfg, dev, tp.batch_size, 31)
-    kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_launches()
     times = []
     for _ in range(4):                   # cold (cuDNN plans), then warm
         torch.cuda.synchronize()
@@ -1258,7 +1299,7 @@ def phase_onthefly(cfg, dev):
         flows = otf(batch["video"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    per_call = {k.name: k.launches // 4 for k in kernels}
+    per_call = {name: c // 4 for name, c in read_launches().items()}
     check(per_call["correlation"] == 1 and per_call["corresponding_map"] == 1,
           f"on-the-fly call launched {per_call}")
     for key, val in flows.items():
@@ -1286,7 +1327,7 @@ def phase_onthefly(cfg, dev):
     torch.cuda.synchronize()
     bad = [k for k, v in metrics.items() if not np.isfinite(float(v))]
     check(not bad, f"train step on on-the-fly flows: non-finite {bad}")
-    counts = {k.name: k.launches for k in kernels}
+    counts = read_launches()
     log(f"  one train step on these flows: total_gen "
         f"{float(metrics['total_gen']):.4f}, flow_reconstruction "
         f"{float(metrics['flow_reconstruction']):.4f}; launches over the 4 "
@@ -1406,6 +1447,406 @@ def phase_train_cpu_parity(cfg, dev):
     return worst
 
 
+class Held:
+    """A dataset's clips made once and held in host memory, as a dataset
+    read from disk hands them out: the loader's threads only collate and
+    pin them."""
+
+    def __init__(self, dataset):
+        self.items = [dataset[i] for i in range(len(dataset))]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+
+def tensors_of(obj, prefix=""):
+    """Every tensor inside a state_dict-like tree, by its path."""
+    if isinstance(obj, torch.Tensor):
+        yield prefix, obj
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from tensors_of(v, f"{prefix}/{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from tensors_of(v, f"{prefix}/{i}")
+
+
+def same_tree(a, b, what):
+    """Bit for bit: every tensor (on any device) and every other leaf."""
+    ta, tb = dict(tensors_of(a)), dict(tensors_of(b))
+    check(ta.keys() == tb.keys(), f"{what}: tensor paths differ")
+    for path, x in ta.items():
+        y = tb[path]
+        check(x.dtype == y.dtype and x.shape == y.shape
+              and torch.equal(x.cpu(), y.cpu()), f"{what}{path} differs")
+    if isinstance(a, dict):
+        for k in a:
+            if not isinstance(a[k], (torch.Tensor, dict, list, tuple)):
+                check(a[k] == b[k], f"{what}/{k}: {a[k]} vs {b[k]}")
+    return len(ta)
+
+
+def state_tree(state):
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "scheduler": state.scheduler.state_dict(),
+            "generator": state.generator.get_state(), "step": state.step}
+
+
+def metrics_of(history, steps):
+    return {h["step"]: {k: float(v) for k, v in h["metrics"].items()}
+            for h in history if h["step"] in steps}
+
+
+def phase_program(cfg, dev):
+    """Phase 12: train -> checkpoint -> resume -> eval -> export, through
+    the port's Trainer, checkpoints, Evaluator and serving artifact, in a
+    temporary directory."""
+    import shutil
+    import tempfile
+    from c2m_tpu_torch.data.dataset import SyntheticDataset
+    t_phase = time.perf_counter()
+    cfg = copy.deepcopy(cfg)
+    cfg.dataset_params.dataset = "synthetic"
+    tp, vz = cfg.train_params, cfg.visualizer_params
+    # every cadence fires within the first four steps of an epoch of eight
+    vz.print_freq, vz.display_freq, vz.save_latest_freq = 1, 2, 2
+    tp.eval_freq = 3
+    vz.tf_log = False
+    cfg.checkpoint_params.save_epoch_freq = 1000
+    tbs = cfg.test_params.batch_size
+    log(f"[phase 12] train -> checkpoint -> resume -> eval -> export at the "
+        f"journal config's full width: Trainer at batch {tp.batch_size}, "
+        f"{tp.dtype} compute, SyntheticDataset clips (1-4 objects of "
+        f"{cfg.dataset_params.max_objects} nodes); Evaluator at batch {tbs}")
+    t0 = time.perf_counter()
+    train_set = Held(SyntheticDataset(cfg, n=8 * tp.batch_size, device=dev))
+    val_set = Held(SyntheticDataset(cfg, n=2 * tbs, seed_offset=10_000,
+                                    device=dev))
+    log(f"  {len(train_set)} training and {len(val_set)} val clips made on "
+        f"the card in {time.perf_counter() - t0:.1f} s, held in host memory")
+    root = tempfile.mkdtemp(prefix="c2m_program_")
+    try:
+        counts = program_steps(cfg, dev, root, train_set, val_set)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def program_steps(cfg, dev, root, train_set, val_set):
+    """Phase 12's runs in ``root``; returns the launch counts by run."""
+    import shutil
+    from c2m_tpu_torch.data.loader import DataLoader, collate
+    from c2m_tpu_torch.eval.evaluator import Evaluator
+    from c2m_tpu_torch.serving import ServingModel, export_artifact, z_dim
+    from c2m_tpu_torch.train.step import make_train_step
+    from c2m_tpu_torch.train.trainer import Trainer, device_batch
+    from c2m_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                load_payload, restore_state,
+                                                save_checkpoint, saved_steps)
+    tp, vz = cfg.train_params, cfg.visualizer_params
+    n_max = cfg.dataset_params.max_objects
+    counts = {}
+
+    # 1. the unbroken run: four steps of an epoch of eight, in two calls of
+    # fit; the save at step 2 is the one a resumed run starts from
+    job_a = os.path.join(root, "unbroken")
+    t0 = time.perf_counter()
+    a = Trainer(cfg, train_set, val_set, job_dir=job_a, device=dev)
+    log(f"  Trainer built in {time.perf_counter() - t0:.1f} s "
+        f"({a.steps_per_epoch} steps per epoch)")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fit(num_epochs=1, max_steps=2)
+    torch.cuda.synchronize()
+    ms_a = (time.perf_counter() - t0) * 1e3
+    check(saved_steps(job_a) == [2], f"saves {saved_steps(job_a)}")
+    with open(os.path.join(job_a, "iter.txt")) as f:
+        check(f.read() == "1,2", "iter.txt after two steps of epoch 1")
+
+    # 2. the broken run's job dir: the unbroken run's after the save at step
+    # 2, as a run stopped there leaves it; a fresh Trainer resumes from it
+    job_b = os.path.join(root, "resumed")
+    shutil.copytree(job_a, job_b)
+    path = checkpoint_path(job_b, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(job_b, a.state, 1, 2)             # the same step again
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    payload = load_payload(job_b)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    saved = {k: payload[k] for k in ("model", "optimizer", "scheduler",
+                                     "generator", "step")}
+    n_saved = same_tree(state_tree(a.state), saved, "saved vs trained state")
+    resumed_cfg = copy.deepcopy(cfg)
+    resumed_cfg.train_params.continue_train = True
+    t0 = time.perf_counter()
+    c = Trainer(resumed_cfg, train_set, val_set, job_dir=job_b, device=dev)
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    check((c.start_epoch, c.epoch_iter, c.total_iter) == (1, 2, 2),
+          f"resumed at epoch {c.start_epoch}, batch {c.epoch_iter}, step "
+          f"{c.total_iter}")
+    n_loaded = same_tree(state_tree(c.state), saved, "loaded vs saved state")
+    log(f"  checkpoint round trip bit for bit: {n_saved} tensors saved equal "
+        f"the trained state, {n_loaded} loaded equal the saved (model, Adam "
+        f"with {len(c.state.optimizer.param_groups)} groups, LambdaLR, "
+        f"generator); save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+        f"{size / 2 ** 30:.3f} GiB on disk; Trainer(continue_train) built "
+        f"and restored in {resume_ms:.1f} ms")
+
+    # the unbroken run goes on: steps 3 and 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fit(num_epochs=1, max_steps=4)
+    torch.cuda.synchronize()
+    ms_a += (time.perf_counter() - t0) * 1e3
+    counts["program"] = read_launches()
+    check(a.total_iter == 4 and a.state.step == 4, "the unbroken run's steps")
+    m_a = metrics_of(a.history, {3, 4})
+    idx_a = {h["step"]: h["indices"] for h in a.history}
+    lr_a = {h["step"]: h["lr"] for h in a.history}
+    gen_a = a.state.generator.get_state().clone()
+    for step, m in m_a.items():
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        check(not bad, f"unbroken step {step}: non-finite {bad}")
+    with open(os.path.join(job_a, "loss_log.txt")) as f:
+        printed = len(f.read().splitlines())
+    images = os.listdir(os.path.join(job_a, "web", "images"))
+    shown = sum(name.startswith("train_") for name in images)
+    sampled = sum(name.startswith("eval_") for name in images)
+    check(printed == 4 and shown > 0 and sampled > 0
+          and saved_steps(job_a) == [2, 4],
+          f"cadences: {printed} printed, {shown} display images, {sampled} "
+          f"eval images, saves at {saved_steps(job_a)}")
+    log(f"  unbroken run: 4 steps in {ms_a:.1f} ms with every cadence firing "
+        f"({printed} loss lines, display and sampled-eval galleries, saves "
+        f"at steps {saved_steps(job_a)}); launches {counts['program']}")
+    expect_launched(counts["program"], FORWARD_128 | BACKWARD,
+                    "the trainer's steps and cadences")
+    reset_launches()
+    check(a._generate_eval(1) is not None, "no sampled eval")
+    torch.cuda.synchronize()
+    counts["program_eval"] = read_launches()
+    expect_launched(counts["program_eval"], FORWARD_128,
+                    "one mid-train sampled eval")
+    log(f"  one mid-train sampled eval (val batch of {cfg.test_params.batch_size}"
+        f"): launches {counts['program_eval']}")
+
+    # the card's own spread: steps 3 and 4 taken three times from the saved
+    # state; step 4's metrics carry step 3's backward. The resumed run and
+    # the unbroken run's steps 3-4 start from that same state, so they may
+    # differ by as much, and no more.
+    c.loader.set_epoch(1, 2)
+    order = c.loader.batch_indices()[:2]
+    check([o.tolist() for o in order] == [idx_a[3], idx_a[4]],
+          f"the resumed epoch's batches {order} are not the unbroken run's "
+          f"{idx_a[3]}, {idx_a[4]}")
+    batches = [device_batch(collate([train_set[int(i)] for i in o]), dev)
+               for o in order]
+    repeats = []
+    for _ in range(3):
+        restore_state(c.state, payload)
+        ms = [c.train_step(c.state, bt) for bt in batches]
+        repeats.append({3 + i: {k: float(v) for k, v in m.items()}
+                        for i, m in enumerate(ms)})
+    restore_state(c.state, payload)
+    c.fit(num_epochs=1, max_steps=4)
+    check(c.total_iter == 4 and c.state.step == 4, "the resumed run's steps")
+    check(torch.equal(c.state.generator.get_state(), gen_a),
+          "the generator after the resumed steps differs from the unbroken "
+          "run's")
+    m_c = metrics_of(c.history, {3, 4})
+    check({h["step"]: h["indices"] for h in c.history} ==
+          {s: idx_a[s] for s in (3, 4)}, "the resumed steps took other batches")
+    check({h["step"]: h["lr"] for h in c.history} ==
+          {s: lr_a[s] for s in (3, 4)}, "the resumed steps took other lrs")
+
+    def rel_diff(x, y):
+        return abs(x - y) / max(abs(y), 1e-6)
+    same3 = all(r[3] == repeats[0][3] for r in repeats)
+    spread = {}
+    for i in range(len(repeats)):
+        for j in range(i):
+            for k, v in repeats[j][4].items():
+                spread[k] = max(spread.get(k, 0.0),
+                                rel_diff(repeats[i][4][k], v))
+    worst_spread = max(spread.values())
+    tol = TOL_RESUME_FACTOR * worst_spread + TOL_RESUME_FLOOR
+    rel = {(step, k): rel_diff(m_c[step][k], v)
+           for step in (3, 4) for k, v in m_a[step].items()}
+
+    def worst_of(step):
+        key = max((k for s_, k in rel if s_ == step),
+                  key=lambda k: rel[(step, k)])
+        return f"{rel[(step, key)]:.3g} ({key})"
+    log(f"  the card's spread, steps 3 and 4 taken {len(repeats)} times from "
+        f"the saved state: step 3's metrics "
+        f"{'equal' if same3 else 'differ'}; step 4's worst relative "
+        f"difference {worst_spread:.3g} ({max(spread, key=spread.get)}) over "
+        f"{len(spread)} metrics")
+    log(f"  resumed vs unbroken: batches {idx_a[3]}, {idx_a[4]} and lrs "
+        f"equal, generator state equal; worst relative metric difference "
+        f"step 3 {worst_of(3)}, step 4 {worst_of(4)} (tol "
+        f"{TOL_RESUME_FACTOR} x spread + {TOL_RESUME_FLOOR} = {tol:.3g})")
+    bad = {key: v for key, v in rel.items() if v > tol}
+    check(not bad, f"resumed steps differ from the unbroken run's beyond "
+          f"{tol:.3g}: {bad}")
+    del c, batches, payload, saved
+    release_memory()
+
+    # 3. the trainer's overhead over a bare step: epoch 2 of the unbroken
+    # run with the cadences off, then the same eight batches as bare steps
+    vz.print_freq = vz.display_freq = vz.save_latest_freq = 10 ** 9
+    tp.eval_freq = 10 ** 9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fit(num_epochs=2)
+    torch.cuda.synchronize()
+    order = [h["indices"] for h in a.history if h["step"] > 4]
+    loop_ms = (time.perf_counter() - t0) * 1e3 / len(order)
+    check(a.total_iter == 4 + len(order) == 2 * a.steps_per_epoch,
+          f"the rest of epoch 1 and epoch 2: {a.total_iter} steps")
+    batches = [device_batch(collate([train_set[int(i)] for i in o]), dev)
+               for o in order]
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt in batches:
+        step(a.state, bt)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3 / len(order)
+    # its parts: the loader alone (collation into pinned memory in its
+    # threads) and the copies of a pinned batch to the card
+    a.loader.set_epoch(3)
+    t0 = time.perf_counter()
+    pinned = list(a.loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(pinned)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt in pinned:
+        device_batch(bt, dev)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3 / len(pinned)
+    mib = sum(np.asarray(v).nbytes for k, v in pinned[0].items()
+              if k != "names") / 2 ** 20
+    log(f"  warm ms per step over {len(order)} steps (the rest of epoch 1 "
+        f"and epoch 2, cadences off), one synchronize at the end: "
+        f"Trainer.fit {loop_ms:.1f} vs bare make_train_step on the same "
+        f"batches already on the card {bare_ms:.1f}: overhead "
+        f"{loop_ms - bare_ms:.1f} ms per step; the loader alone "
+        f"{loader_ms:.1f} ms per batch of {mib:.1f} MiB (its threads), the "
+        f"pinned copy to the card {h2d_ms:.2f} ms")
+    del batches, pinned
+    release_memory()
+
+    # 4. the evaluator: two val batches of test_params.batch_size, clicks
+    # saved, then a second pass that loads them
+    ecfg = copy.deepcopy(cfg)
+    ecfg.test_params.save_index_user_guidance = True
+    ecfg.test_params.load_index_user_guidance = False
+    job_e = os.path.join(root, "eval")
+    loader = DataLoader(val_set, batch_size=ecfg.test_params.batch_size,
+                        shuffle=False, num_workers=2, drop_last=False)
+    passes = []
+    for load in (False, True):
+        ecfg.test_params.load_index_user_guidance = load
+        ev = Evaluator(ecfg, a.state.model, job_e)
+        g = torch.Generator().manual_seed(ecfg.test_params.seed + int(load))
+        clicks, times = [], []
+        for bi, batch in enumerate(loader):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ev.evaluate_batch(batch, bi, g)
+            ev.save_samples(batch, out, bi)
+            ev.fetch_metrics_data(batch, out)
+            times.append((time.perf_counter() - t0) * 1e3)
+            clicks.append(out["click_mask"])
+            check(out["generated"].shape[0] == len(batch["video"])
+                  and np.isfinite(out["generated"]).all(),
+                  f"eval batch {bi}: generated {out['generated'].shape}")
+        results = ev.generate_metrics()
+        ev.write_metrics(results)
+        passes.append((clicks, times, results))
+    files = set(os.listdir(ev.out_dir))
+    want = {f"b{bi:05d}_s{s}_{kind}" for bi in range(2) for s in range(2)
+            for kind in ("gen.gif", "real.gif", "gen.png", "flow.png",
+                         "occ.png")}
+    want |= {"results.txt", "index_user_guidance_00000.npy",
+             "index_user_guidance_00001.npy"}
+    check(want <= files, f"evaluator files missing: {sorted(want - files)}")
+    check(os.path.exists(os.path.join(ev.out_dir, "web", "index.html")),
+          "no evaluator HTML")
+    results = passes[0][2]
+    check(np.isfinite(results["trajectory_mse_theta"])
+          and np.isnan(results["fid"]) and np.isnan(results["fvd"]),
+          f"evaluator results {results}")
+    check(all(np.array_equal(x, y) for x, y in zip(passes[0][0],
+                                                    passes[1][0])),
+          "the second pass did not reproduce the saved clicks")
+    log(f"  evaluator over 2 val batches of {ecfg.test_params.batch_size}: "
+        f"ms per batch (inference, sample dumps, metric inputs) "
+        f"{', '.join(f'{t:.1f}' for t in passes[0][1])}, loading the clicks "
+        f"{', '.join(f'{t:.1f}' for t in passes[1][1])}; results {results}; "
+        f"the second pass reproduced the saved clicks")
+
+    # 5. export the trained generator, serve it, hold it to the model
+    art = os.path.join(root, "artifact")
+    t0 = time.perf_counter()
+    export_artifact(art, cfg, a.state.model, batch_sizes=(cfg.test_params.batch_size,))
+    export_ms = (time.perf_counter() - t0) * 1e3
+    server = ServingModel.from_artifact(art, device=dev, use_gt_eval=True)
+    batch = next(iter(loader))
+    g = torch.Generator().manual_seed(SEED)
+    z = torch.randn(len(batch["video"]), z_dim(cfg), generator=g)
+    click = torch.zeros(len(batch["video"]), n_max)
+    click[:, 2] = 1
+    got = server(batch, z.numpy(), click.numpy())
+    model = a.state.model.eval()
+    want = model.inference(device_batch(batch, dev), z.to(dev),
+                           click.to(dev), use_gt_eval=True)
+    err = float((torch.from_numpy(got["generated"])
+                 - want["generated"].float().cpu()).abs().max())
+    log(f"  exported in {export_ms:.1f} ms "
+        f"({os.path.getsize(os.path.join(art, 'variables.npz')) / 2 ** 20:.1f}"
+        f" MiB of variables); ServingModel.from_artifact on the card vs the "
+        f"trained model's inference on the same z and clicks: max|diff| "
+        f"generated {err:.3g} (tol {TOL_PAD:.3g})")
+    check(err <= TOL_PAD, f"served artifact differs by {err}")
+    del a, server, model, want
+    release_memory()
+
+    # 6. one trainer step with on-the-fly FlowNet2 flow
+    fcfg = copy.deepcopy(cfg)
+    fcfg.train_params.use_pre_processed_of = False
+    t0 = time.perf_counter()
+    d = Trainer(fcfg, train_set, None, job_dir=os.path.join(root, "otf"),
+                device=dev)
+    built = time.perf_counter() - t0
+    reset_launches()
+    d.fit(num_epochs=1, max_steps=1)
+    torch.cuda.synchronize()
+    counts["program_onthefly"] = read_launches()
+    m = {k: float(v) for k, v in d.history[-1]["metrics"].items()}
+    check(all(np.isfinite(v) for v in m.values()), f"on-the-fly step {m}")
+    expect_launched(counts["program_onthefly"],
+                    FORWARD_128 | BACKWARD | {"correlation"},
+                    "a trainer step with on-the-fly flow")
+    log(f"  Trainer with use_pre_processed_of: false (FlowNet2 built in "
+        f"{built:.1f} s): one step, total_gen {m['total_gen']:.4f}; "
+        f"launches {counts['program_onthefly']}")
+    del d
+    release_memory()
+    return counts
+
+
 def profile_window(name: str, fn, warm_ms: float) -> None:
     """torch.profiler over one warm call of fn: device time by operator and
     by kernel, launches and idle share, printed. The profiler slows the host, so the idle share is also
@@ -1472,30 +1913,26 @@ def main() -> int:
     log(f"[phase 2] kernels built from c2m_tpu_torch/csrc in "
         f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib)}")
 
-    def release():
-        """Hand a finished phase's cached blocks back, so that the next
-        phase's peak memory is its own."""
-        gc.collect()
-        torch.cuda.empty_cache()
-
     rows = phase_kernels(dev)
-    release()
+    release_memory()
     cfg = load_config()                     # configs/c2m_journal_cityscapes.yaml
     counts = {"serving": phase_serving(cfg, dev, profile)}
     with tf32_off():
         phase_cpu_parity(cfg, dev)
-    release()
+    release_memory()
     counts["train"] = phase_train(cfg, dev, profile)
     with tf32_off():
         phase_train_cpu_parity(cfg, dev)
-    release()
+    release_memory()
     counts["onthefly"] = phase_onthefly(cfg, dev)
-    release()
+    release_memory()
     long_cfg = load_config(LONG_YAML)
     counts["long_serving"] = phase_long_serving(long_cfg, dev, profile)
-    release()
+    release_memory()
     phase_long_raster_parity(long_cfg, dev)
     counts["long_train"] = phase_long_train(long_cfg, dev, profile)
+    release_memory()
+    counts.update(phase_program(cfg, dev))
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``c2m_tpu_torch/`` and not
-``chip_smoke.py`` or ``kernel_ab.py`` imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
+``chip_smoke.py``, ``kernel_ab.py``, ``train_torch.py`` or ``eval_torch.py``
+imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
 ``optax``, at top level or inside any function. Every source is parsed with
 ``ast`` (docstrings that name the counterpart file are not imports and
 stay). Each entry point defaults to the card and says so where there is
@@ -19,8 +20,9 @@ FORBIDDEN = {"c2m_tpu", "jax", "jaxlib", "flax", "optax"}
 
 
 def _sources():
-    paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "kernel_ab.py")]
+    paths = [os.path.join(REPO, name) for name in
+             ("chip_smoke.py", "kernel_ab.py", "train_torch.py",
+              "eval_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "c2m_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -47,7 +49,12 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 
 def test_the_walk_sees_the_port_and_catches_an_import(tmp_path):
     names = {os.path.relpath(p, REPO) for p in _sources()}
-    assert {"chip_smoke.py", "c2m_tpu_torch/config.py",
+    assert {"chip_smoke.py", "train_torch.py", "eval_torch.py",
+            "c2m_tpu_torch/config.py",
+            "c2m_tpu_torch/train/trainer.py",
+            "c2m_tpu_torch/eval/evaluator.py",
+            "c2m_tpu_torch/utils/checkpoint.py",
+            "c2m_tpu_torch/data/loader.py",
             "c2m_tpu_torch/train/step.py",
             "c2m_tpu_torch/data/synthetic.py",
             "c2m_tpu_torch/models/flownet2.py",
@@ -68,7 +75,7 @@ import importlib, os, pkgutil, sys
 import c2m_tpu_torch
 for m in pkgutil.walk_packages(c2m_tpu_torch.__path__, "c2m_tpu_torch."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, eval_torch, train_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("c2m_tpu", "jax", "jaxlib", "flax", "optax"))
 assert not bad, bad
@@ -85,11 +92,15 @@ def test_importing_every_module_loads_nothing_of_jax():
 
 
 def _entry_points():
+    import eval_torch
+    import train_torch
     from c2m_tpu_torch.config import shrink_model, tiny_config
+    from c2m_tpu_torch.data.dataset import SyntheticDataset
     from c2m_tpu_torch.data.synthetic import make_batch
     from c2m_tpu_torch.serving import ServingModel
     from c2m_tpu_torch.train.flow_onthefly import OnTheFlyFlow
     from c2m_tpu_torch.train.state import create_train_state
+    from c2m_tpu_torch.train.trainer import Trainer
     cfg = shrink_model(tiny_config())
     return {
         "make_batch": lambda: make_batch(cfg, seed=0),
@@ -99,12 +110,20 @@ def _entry_points():
             lambda: ServingModel.from_artifact("/nonexistent"),
         "create_train_state": lambda: create_train_state(cfg),
         "OnTheFlyFlow": lambda: OnTheFlyFlow(1, 5),
+        "SyntheticDataset": lambda: SyntheticDataset(cfg),
+        "Trainer": lambda: Trainer(cfg, [], job_dir="/nonexistent"),
+        "train_torch.main": lambda: train_torch.main(
+            ["--config", "/nonexistent.yaml"]),
+        "eval_torch.main": lambda: eval_torch.main(
+            ["--config", "/nonexistent.yaml"]),
     }
 
 
 @pytest.mark.parametrize("name", ["make_batch", "ServingModel.from_variables",
                                   "ServingModel.from_artifact",
-                                  "create_train_state", "OnTheFlyFlow"])
+                                  "create_train_state", "OnTheFlyFlow",
+                                  "SyntheticDataset", "Trainer",
+                                  "train_torch.main", "eval_torch.main"])
 def test_entry_point_defaults_to_the_card(name):
     """With no ``device`` an entry point asks for the card. This host has
     none, so it must raise an error that names CUDA, before anything else
