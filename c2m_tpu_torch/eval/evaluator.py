@@ -33,6 +33,7 @@ from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.eval import fid as fid_mod
 from c2m_tpu_torch.eval.detection_metric import compute_detection
 from c2m_tpu_torch.models.sparse_motion import sample_click_indices
+from c2m_tpu_torch.parallel import mesh
 from c2m_tpu_torch.serving import z_dim
 from c2m_tpu_torch.train.trainer import device_batch, host_arrays
 from c2m_tpu_torch.utils.flow_color import flow_video_to_color
@@ -94,7 +95,7 @@ class Evaluator:
             idx = torch.from_numpy(np.load(path)).long()
         else:
             idx, _ = sample_click_indices(num_real, n_max, generator)
-            if tcfg.save_index_user_guidance:
+            if tcfg.save_index_user_guidance and mesh.is_main():
                 np.save(path, idx.numpy().astype(np.int32))
         mask = torch.nn.functional.one_hot(idx, n_max).float()
         return (mask * (num_real > 0)[:, None].float()).to(self.device)
@@ -116,6 +117,10 @@ class Evaluator:
     # -- sample dumps (evaluator.py:185-224) ---------------------------------
 
     def save_samples(self, batch, out, batch_idx: int, max_samples: int = 2):
+        """Gifs, pngs and a page of the first samples; rank 0 alone writes
+        under a process group."""
+        if not mesh.is_main():
+            return
         from PIL import Image
         nif = self.cfg.train_params.num_input_frames
         for s in range(min(max_samples, out["generated"].shape[0])):
@@ -208,7 +213,10 @@ class Evaluator:
         return results
 
     def write_metrics(self, results: Dict[str, float]) -> str:
+        """``results.txt`` (rank 0 alone writes it under a process group)."""
         path = os.path.join(self.out_dir, "results.txt")
+        if not mesh.is_main():
+            return path
         with open(path, "w") as f:
             for k, v in results.items():
                 f.write(f"{k}: {v}\n")

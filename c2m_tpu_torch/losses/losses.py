@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from c2m_tpu_torch.nn.layers import fold_time
 from c2m_tpu_torch.ops.warp import resample
+from c2m_tpu_torch.parallel import mesh
 
 Taps = Dict[str, torch.Tensor]
 
@@ -138,9 +139,16 @@ def perceptual_loss_folded(vgg: Callable[[torch.Tensor], Taps],
 def masked_theta_losses(thetas: torch.Tensor, targets_theta: torch.Tensor,
                         node_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-timestep L1 of the GNN's thetas against GT over the valid nodes,
-    summed over T. thetas, targets: [B, N, T, 6]."""
+    summed over T. thetas, targets: [B, N, T, 6]. Under a live process
+    group the count is the global batch's per rank (its sum over the ranks
+    over their number), so that the mean of the ranks' losses, and of their
+    gradients, is the global batch's loss, as under ``jit`` on a data
+    mesh."""
     m = node_mask[:, :, None].to(thetas.dtype)                # [B, N, 1]
-    count = node_mask.sum().to(thetas.dtype).clamp_min(1.0)
+    count = node_mask.sum().to(thetas.dtype)
+    if mesh.is_live():
+        count = mesh.global_sum(count.detach()) / mesh.world_size()
+    count = count.clamp_min(1.0)
 
     def per_t_sum(i):
         d = (thetas[..., i] - targets_theta[..., i]).abs() * m
@@ -155,9 +163,16 @@ def gan_mse_loss(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:
     """LSGAN MSE against a 0/1 label. Reference quirk, kept for parity: the
     reference's ``GANLoss`` indexes ``input[-1]`` of the prediction-map
     TENSOR, so the loss is the MSE over the LAST batch element's patch map
-    only (the last frame of the last sample in the time fold)."""
+    only (the last frame of the last sample in the time fold). Under a live
+    process group that element is the global batch's, on the last rank: its
+    loss is scaled by the number of ranks there and by 0 elsewhere, so that
+    the mean over the ranks is the global batch's loss."""
     target = 1.0 if target_is_real else 0.0
-    return (pred[-1] - target).square().mean()
+    loss = (pred[-1] - target).square().mean()
+    if mesh.is_live():
+        world = mesh.world_size()
+        loss = loss * (float(world) if mesh.rank() == world - 1 else 0.0)
+    return loss
 
 
 def feature_matching_loss(real_feats: Sequence[torch.Tensor],

@@ -83,12 +83,10 @@ class C2MGenerator(nn.Module):
     generator, the generator side of the reference's model."""
 
     def __init__(self, cfg: Config):
+        """A dataset name (``cfg.dataset_params.dataset``) holding ``kitti``
+        gives the generator its warped-image branch, as in the JAX
+        package."""
         super().__init__()
-        # the JAX generator keys its warped-image branch on the dataset name
-        # (c2m_tpu/models/generator.py); refuse before any weight is built
-        if "kitti" in cfg.dataset_params.dataset:
-            raise NotImplementedError(
-                "the KITTI generator (warped-image branch) is not ported yet")
         self.cfg = cfg
         mp, tp = cfg.model_params, cfg.train_params
         me = mp.motion_estimator
@@ -131,7 +129,9 @@ class C2MGenerator(nn.Module):
                         64 * self.h_app * self.w_app)
         self.zconv = SameBlockTwoConv2d(64 + app_ch, 16 * tpred, 3, 1, 1,
                                         padding_mode="reflect")
-        self.generator = OcclusionAwareGenerator(mp.generator)
+        self.generator = OcclusionAwareGenerator(
+            mp.generator, mp.flow_embedder,
+            dataset=cfg.dataset_params.dataset)
 
     def use_compute_dtype(self, dtype: torch.dtype) -> "C2MGenerator":
         """For training and serving alike: the conv stacks and the VAE
@@ -234,7 +234,7 @@ class C2MGenerator(nn.Module):
             b * tpred, *src.shape[1:])
         flow, _ = fold_time(dense_bw["dense_motion"])
         occ, _ = fold_time(dense_bw["occlusion"])
-        return unfold_time(self.generator(src_rep, flow, occ), tpred)
+        return unfold_time(self.generator(src_rep, flow, occ, tpred), tpred)
 
     def _sparse_previews(self, batch: Batch, out: Dict[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:

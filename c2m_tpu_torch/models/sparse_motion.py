@@ -15,6 +15,7 @@ from torch import nn
 
 from c2m_tpu_torch.config import SparseMotionEstimatorParams
 from c2m_tpu_torch.nn.layers import BN_MOMENTUM, Dense, leaky
+from c2m_tpu_torch.parallel import mesh
 
 
 class MaskedBatchNorm1d(nn.Module):
@@ -22,7 +23,9 @@ class MaskedBatchNorm1d(nn.Module):
     variance over the valid nodes of the batch, the count floored at 1; the
     running variance takes the UNBIASED estimate (var·n/(n−1), as torch's
     BatchNorm1d does; unlike ``nn.layers.BatchNorm``), momentum 0.1. Eval
-    mode uses the running statistics."""
+    mode uses the running statistics. Under a live process group the sums
+    and the count are the global batch's (``parallel/mesh``), as in the
+    JAX package under ``jit`` on a data mesh."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -36,9 +39,13 @@ class MaskedBatchNorm1d(nn.Module):
         """x [B, N, C]; mask [B, N]."""
         if self.training:
             m = mask[..., None].to(x.dtype)
-            count = m.sum().clamp_min(1.0)
-            mean = (x * m).sum(dim=(0, 1)) / count
-            var = ((x - mean).square() * m).sum(dim=(0, 1)) / count
+            total, count = (x * m).sum(dim=(0, 1)), m.sum()
+            if mesh.is_live():
+                total, count = mesh.global_sums(total, count)
+            count = count.clamp_min(1.0)
+            mean = total / count
+            spread = ((x - mean).square() * m).sum(dim=(0, 1))
+            var = mesh.global_sum(spread) / count
             with torch.no_grad():
                 unbiased = var * count / (count - 1.0).clamp_min(1.0)
                 self.running_mean.lerp_(mean, BN_MOMENTUM)

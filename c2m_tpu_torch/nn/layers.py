@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from c2m_tpu_torch.ops.warp import resize_bilinear
+from c2m_tpu_torch.parallel import mesh
 
 IntOrSeq = Union[int, Sequence[int]]
 
@@ -72,14 +73,15 @@ def _operands(mod, x: torch.Tensor):
 
 class Conv(nn.Conv2d):
     """2D conv on NHWC with explicit reflect/replicate/zeros padding.
-    Parameters: ``weight`` [F, C, kh, kw], ``bias`` [F] (torch default init,
-    which is also the JAX package's)."""
+    Parameters: ``weight`` [F, C, kh, kw], ``bias`` [F] unless ``use_bias``
+    is off (torch default init, which is also the JAX package's)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: IntOrSeq = 3, strides: IntOrSeq = 1,
-                 padding: IntOrSeq = 0, padding_mode: str = "zeros"):
+                 padding: IntOrSeq = 0, padding_mode: str = "zeros",
+                 use_bias: bool = True):
         super().__init__(in_features, features, _tuple(kernel_size, 2),
-                         stride=_tuple(strides, 2), padding=0)
+                         stride=_tuple(strides, 2), padding=0, bias=use_bias)
         self.pad = _tuple(padding, 2)
         self.pad_mode = padding_mode
         self.compute_dtype = None
@@ -146,7 +148,14 @@ class BatchNorm(nn.Module):
     flax computes it, and moves the running statistics by momentum 0.1
     (flax 0.9). As in the JAX package (flax), ``running_var`` takes the
     BIASED batch variance; ``torch.nn.BatchNorm`` would store the unbiased
-    one."""
+    one.
+
+    The statistics are the global batch's, as flax's are under ``jit`` on a
+    data mesh: under a live process group the per-channel E[x] and E[x²]
+    are averaged over the ranks, whose counts are equal
+    (``parallel/mesh.global_sums``, whose backward carries the other ranks'
+    terms), so every rank normalizes alike and keeps the same running
+    statistics. Without a group they are the local batch's."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -160,8 +169,15 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            mean, meansq = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            if mesh.is_live():
+                # every rank normalizes the same number of rows (each takes
+                # train_params.batch_size clips), so the global moments are
+                # the ranks' mean moments; a group of one rank divides by 1
+                world = float(mesh.world_size())
+                mean, meansq = (m / world for m in
+                                mesh.global_sums(mean, meansq))
+            var = (meansq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                         BN_MOMENTUM)

@@ -32,6 +32,7 @@ import torch
 
 from c2m_tpu_torch.device import resolve_device
 from c2m_tpu_torch.models.c2m import DTYPES, C2MGenerator
+from c2m_tpu_torch.parallel import mesh
 from c2m_tpu_torch.utils.convert import (flatten, from_jax_variables,
                                          to_jax_variables)
 
@@ -70,8 +71,11 @@ def export_artifact(out_dir: str, cfg, model: torch.nn.Module,
     """Write a serving artifact directory (``variables.npz``, ``meta.json``,
     ``config.yaml``; format version 1) from ``model``, a ``C2MTrainModel``
     or ``C2MGenerator``. ``ServingModel.from_artifact`` reads it back, and
-    so does the JAX package's loader of ``variables.npz``."""
+    so does the JAX package's loader of ``variables.npz``. Under a
+    process group rank 0 alone writes it."""
     import yaml
+    if not mesh.is_main():
+        return
     os.makedirs(out_dir, exist_ok=True)
     flat = flatten(generator_variables(model.state_dict(), cfg))
     # the JAX writer's layout: '/'-joined paths plus a JSON map of the

@@ -27,6 +27,7 @@ from torch import nn
 
 from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.device import resolve_device
+from c2m_tpu_torch.parallel import mesh
 from c2m_tpu_torch.train.model import C2MTrainModel
 
 GROUPS = ("gen", "gnn", "d_image", "d_video")
@@ -91,7 +92,7 @@ def create_train_state(cfg: Config, seed: Optional[int] = None, device=None,
     optimizer, scheduler and a CPU ``torch.Generator`` seeded with ``seed``
     (default ``train_params.seed``). Weights are drawn on the CPU from that
     seed before the model moves, so a seed gives the same weights on any
-    device."""
+    device; under a process group every rank then takes rank 0's."""
     device = resolve_device(device)
     seed = cfg.train_params.seed if seed is None else seed
     generator = torch.Generator().manual_seed(seed)
@@ -99,5 +100,6 @@ def create_train_state(cfg: Config, seed: Optional[int] = None, device=None,
         torch.manual_seed(seed)
         model = C2MTrainModel(cfg)
     model = model.to(device).train()
+    mesh.broadcast_state(model)             # rank 0's, under a process group
     optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch)
     return TrainState(model, optimizer, scheduler, generator)

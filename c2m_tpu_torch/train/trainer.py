@@ -20,6 +20,16 @@ trainer's. What differs:
   alone.
 - A batch goes to the card once per step, copied ``non_blocking`` from
   pinned host memory that the loader's threads fill.
+
+Under a live process group (``parallel/mesh``: ``train_torch.py`` under
+``torchrun``, one process per card) the loader reads this rank's shard of
+each epoch, ``train_params.batch_size`` clips per rank as the JAX loader's
+per host; the step takes the global batch's draws and averages the
+gradients and the metrics (``train/step.py``). Rank 0 alone writes: the
+config snapshot, the logs, checkpoints and ``iter.txt``, the display and
+the sampled eval; every rank reads a resume. The display gathers the
+ranks' outputs to rank 0 first; the sampled eval trims the val batch to a
+multiple of the number of ranks and gives each rank its rows.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.data.loader import DataLoader
 from c2m_tpu_torch.device import resolve_device
 from c2m_tpu_torch.models.sparse_motion import sample_click_indices
+from c2m_tpu_torch.parallel import mesh
 from c2m_tpu_torch.serving import z_dim
 from c2m_tpu_torch.train.state import create_train_state
 from c2m_tpu_torch.train.step import make_eval_step, make_train_step
@@ -89,13 +100,17 @@ class Trainer:
         self.device = resolve_device(device)
         self.job_dir = job_dir or os.path.join(
             cfg.workspace, f"{cfg.dataset_params.dataset}_{cfg.name}{cfg.suffix}")
+        self.is_main = mesh.is_main()
         os.makedirs(self.job_dir, exist_ok=True)
-        self._snapshot_config()
+        if self.is_main:
+            self._snapshot_config()
 
         pinned = self.device.type == "cuda"
         self.loader = DataLoader(dataset, batch_size=tp.batch_size,
                                  shuffle=True, seed=tp.seed,
-                                 num_workers=tp.workers, pin_memory=pinned)
+                                 num_workers=tp.workers, pin_memory=pinned,
+                                 host_id=mesh.rank(),
+                                 num_hosts=mesh.world_size())
         self.val_dataset = val_dataset
         self.steps_per_epoch = max(len(self.loader), 1)
         self.state = create_train_state(cfg, device=self.device,
@@ -123,7 +138,7 @@ class Trainer:
 
         vz = cfg.visualizer_params
         self.visualizer = Visualizer(self.job_dir, use_html=vz.use_html,
-                                     tf_log=vz.tf_log)
+                                     tf_log=vz.tf_log) if self.is_main else None
         self.total_iter = self.state.step
         # the newest steps: total_iter, epoch, the dataset indices of the
         # batch, the lr per group it was taken with, and the metrics
@@ -177,42 +192,55 @@ class Trainer:
                                      "indices": indices.tolist(), "lr": lrs,
                                      "metrics": metrics})
 
-                if self.total_iter % vz.print_freq == 0:
+                if self.is_main and self.total_iter % vz.print_freq == 0:
                     metrics_host = {k: float(v) for k, v in metrics.items()}
                     self.visualizer.log_losses(epoch, self.total_iter,
                                                metrics_host,
                                                time.time() - t_iter)
                 if self.total_iter % vz.display_freq == 0:
-                    self._display(batch_np, batch, epoch)
+                    self._display(batch, epoch)
                 if self.total_iter % tp.eval_freq == 0:
                     self._generate_eval(epoch, batch_np)
                 if self.total_iter % vz.save_latest_freq == 0:
-                    save_checkpoint(self.job_dir, self.state, epoch, epoch_iter)
+                    self._save(epoch, epoch_iter)
                 t_iter = time.time()
 
             if epoch % cfg.checkpoint_params.save_epoch_freq == 0:
-                save_checkpoint(self.job_dir, self.state, epoch, epoch_iter)
+                self._save(epoch, epoch_iter)
             self._stand_at(epoch, epoch_iter)
-            print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s",
-                  flush=True)
+            if self.is_main:
+                print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s",
+                      flush=True)
+
+    def _save(self, epoch: int, epoch_iter: int) -> None:
+        """Rank 0 writes the checkpoint; the others wait for it."""
+        if self.is_main:
+            save_checkpoint(self.job_dir, self.state, epoch, epoch_iter)
+        mesh.barrier()
 
     # -- the display (reference _generate_eval, trainer.py:186-209) ----------
 
-    def _draws(self, b: int, num_real_nodes: torch.Tensor, n_max: int,
-               salt: int):
-        """Noise [b, z_dim] and a click mask [b, n_max] for this
-        iteration's display or eval, on the model's device."""
+    def _draws(self, num_real_nodes: torch.Tensor, n_max: int, salt: int):
+        """Noise [b, z_dim] and a click mask [b, n_max] for this rank's b
+        rows of this iteration's display or eval, drawn for the global
+        batch, on the model's device."""
         g = step_generator(self.cfg.train_params.seed, self.total_iter, salt)
-        z = torch.randn(b, z_dim(self.cfg), generator=g).to(self.device)
-        _, click = sample_click_indices(num_real_nodes, n_max, g)
-        return z, click
+        num_real = mesh.gather_rows(num_real_nodes)
+        z = torch.randn(num_real.shape[0], z_dim(self.cfg), generator=g)
+        _, click = sample_click_indices(num_real, n_max, g)
+        return mesh.local_rows(z).to(self.device), mesh.local_rows(click)
 
-    def _display(self, batch_np, batch, epoch: int) -> None:
+    def _display(self, batch, epoch: int) -> None:
         """A train=False forward of the step's batch (``make_eval_step``),
-        dumped to the gallery with its trajectories."""
+        the ranks' rows gathered to rank 0 and dumped to the gallery with
+        their trajectories."""
         out, _ = self._eval_forward(batch)
-        host_out = host_arrays(out)
-        host_batch = host_arrays(batch_np)
+        host_out = host_arrays({k: mesh.gather_rows(v) for k, v in out.items()
+                                if v.dim() > 0})
+        host_batch = host_arrays({k: mesh.gather_rows(v)
+                                  for k, v in batch.items()})
+        if not self.is_main:
+            return
         self.visualizer.display_results(host_batch, host_out, epoch,
                                         self.total_iter)
         self.visualizer.log_trajectories(
@@ -220,8 +248,8 @@ class Trainer:
             host_batch["targets_theta"], host_batch["node_mask"])
 
     def _eval_forward(self, batch):
-        b, n_max = batch["node_mask"].shape
-        eps, click = self._draws(b, batch["num_real_nodes"], n_max, _DISPLAY)
+        n_max = batch["node_mask"].shape[1]
+        eps, click = self._draws(batch["num_real_nodes"], n_max, _DISPLAY)
         return self.eval_step(self.state, batch, eps, click)
 
     # -- the mid-train sampled eval (trainer.py:186-209, base.py:115-121) ----
@@ -262,11 +290,24 @@ class Trainer:
             host_batch = batch
         if host_batch is None:
             return None
-        dev_batch = device_batch(host_batch, self.device)
-        b, n_max = dev_batch["node_mask"].shape
-        z, click = self._draws(b, dev_batch["num_real_nodes"], n_max, _EVAL)
-        out = host_arrays(self._infer(dev_batch, z, click))
-        hb = host_arrays(host_batch)
+        # every rank holds the same val batch (its training batch is its
+        # own: gathered first); the rows are shared out evenly
+        hb = host_arrays(host_batch if host_batch is not batch else
+                         {k: mesh.gather_rows(v) for k, v in
+                          device_batch(batch, self.device).items()})
+        world = mesh.world_size()
+        b_keep = (len(hb["video"]) // world) * world
+        if b_keep == 0:
+            return None
+        hb = {k: v[:b_keep] for k, v in hb.items()}
+        dev_batch = {k: mesh.local_rows(v)
+                     for k, v in device_batch(hb, self.device).items()}
+        n_max = dev_batch["node_mask"].shape[1]
+        z, click = self._draws(dev_batch["num_real_nodes"], n_max, _EVAL)
+        out = host_arrays({k: mesh.gather_rows(v) for k, v in
+                           self._infer(dev_batch, z, click).items()})
+        if not self.is_main:
+            return out
         self.visualizer.display_results(hb, out, epoch, self.total_iter,
                                         tag="eval")
         self.visualizer.log_trajectories(

@@ -107,7 +107,8 @@ def _entries(mod: nn.Module) -> Iterator[Entry]:
     elif isinstance(mod, Conv):
         yield ("weight", "params", below("Conv_0") + ("kernel",),
                lambda k: k.permute(3, 2, 0, 1), lambda w: w.permute(2, 3, 1, 0))
-        yield "bias", "params", below("Conv_0") + ("bias",), _same, _same
+        if mod.bias is not None:
+            yield "bias", "params", below("Conv_0") + ("bias",), _same, _same
     elif isinstance(mod, Deconv):
         # the same axis map as a conv's, read on [kh, kw, out, in]
         yield ("weight", "params", ("ConvTranspose_0", "kernel"),
@@ -130,8 +131,9 @@ def _entries(mod: nn.Module) -> Iterator[Entry]:
         yield "running_mean", "batch_stats", sub + ("mean",), _same, _same
         yield "running_var", "batch_stats", sub + ("var",), _same, _same
     elif isinstance(mod, InstanceNorm):
-        yield "weight", "params", ("scale",), _same, _same
-        yield "bias", "params", ("bias",), _same, _same
+        if mod.weight is not None:          # affine=False holds nothing
+            yield "weight", "params", ("scale",), _same, _same
+            yield "bias", "params", ("bias",), _same, _same
     else:
         raise TypeError(f"no JAX layout known for {type(mod).__name__}")
 

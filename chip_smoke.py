@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: serving and
 the train step at the journal config (128x256) and at the long-horizon
-config (512x1024), FlowNet2 on-the-fly flow feeding a train step, and the
+config (512x1024), FlowNet2 on-the-fly flow feeding a train step, the
 program around the step (trainer, checkpoint and resume, evaluator,
-serving artifact) at the journal config.
+serving artifact) at the journal config, the KITTI and SPADE generator
+variants, and the trainer over a NCCL process group.
 
     python3 chip_smoke.py [--profile]
 
@@ -89,7 +90,24 @@ Phases (any failure raises and the script exits non-zero):
      FID / FVD NaN without embedders) and a second pass that loads the
      saved clicks; export_artifact -> ServingModel.from_artifact against
      the trained model's inference; one trainer step with on-the-fly
-     FlowNet2 flow (K5 launched).
+     FlowNet2 flow (K5 launched);
+ 13. the generator variants at full width: configs/c2m_kitti.yaml as
+     shipped (the warped-image encoder branch) and the journal config with
+     use_spade set in code (FlowEmbedder + SPADE decoder). First the
+     image warp through K1's frames=5 against the repeated image, bit for
+     bit (output and flow gradient). For each: a ServingModel at bucket 12
+     on the three requests of phase 4 (padded rows in float32 within
+     TOL_PAD_F32, a row-mixing control beyond it), three
+     train steps at batch 3 with the checks of phase 6 (K1, K2, K4 and K1's
+     backward launched on each path), the variant's own branch holding
+     non-zero gradients, export_artifact -> ServingModel.from_artifact equal
+     to the trained model's inference bit for bit, and float32 inference at
+     batch 1 card vs CPU under the structural gate (TOL_VARIANT_*);
+ 14. two Trainer steps at the journal config inside a NCCL process group of
+     one rank (the gradient all-reduce, the norms' global sums and the
+     metrics' mean run, counted) against the same steps with no group:
+     step 1's metrics bit for bit, step 2's within phase 12's measured
+     spread; a failed NCCL init fails the run.
 With --profile, torch.profiler splits one warm train step and one warm
 request of each config by operator and by kernel (printed).
 
@@ -118,6 +136,8 @@ SEED = 0
 LONG_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "c2m_long_horizon.yaml")
 LONG_BUCKETS = (1, 4)
+KITTI_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "c2m_kitti.yaml")
 
 # tolerances of kernel vs plain version on the card, and why
 TOL_F32 = 1e-5          # same float32 ops; the plain CUDA ops may contract
@@ -157,6 +177,20 @@ TOL_GRAD_NORM = 0.02
 # comparison with a run that forked earlier would need another gate.
 TOL_RESUME_FACTOR = 5.0
 TOL_RESUME_FLOOR = 1e-5
+# the KITTI and SPADE models, card vs CPU in float32: the structural gate of
+# tests/test_c2m_converter.py (the full-resolution image warp flips bilinear
+# floor() where the flows differ in the last bits; InstanceNorm spreads a
+# flipped pixel over its map): max |d| and the share of pixels off by more
+# than TOL_VARIANT_PIXEL
+TOL_VARIANT_MAX = 1e-2
+TOL_VARIANT_PIXEL = 1e-3
+TOL_VARIANT_SHARE = 0.05
+# the variants' padded vs unpadded rows in float32, TF32 off, on one card:
+# rows are independent, so only the conv algorithms cuDNN picks per batch
+# size differ (SPADE 1.37e-6, KITTI 1.19e-7 on an NVIDIA H100 80GB HBM3 at
+# 700 W); a control that mixes the rows through batch statistics must
+# exceed the gate
+TOL_PAD_F32 = 1e-4
 
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -998,10 +1032,19 @@ FORWARD_512 = {"resample_f32", "resample_bf16", "warp_masks_banded",
 BACKWARD = {"resample_bwd_f32", "resample_bwd_bf16"}
 
 
-def serve(phase, cfg, dev, buckets, plan, launched, profile):
+def serve(phase, cfg, dev, buckets, plan, launched, profile,
+          structural=False):
     """A ServingModel pair (GT thetas / click path) around one seeded model
     answers one request per entry (batch size, GT thetas?) of ``plan``.
-    Returns the launch counts."""
+    Returns the launch counts. Padded rows are held to their unpadded
+    serving within TOL_PAD; with ``structural`` (the generator variants)
+    they are held in float32, TF32 off, within TOL_PAD_F32, a control whose
+    norms mix the rows (batch statistics) must exceed TOL_PAD_F32, and the
+    bfloat16 difference is printed: the variants' outputs spread over
+    [0.2, 0.9] and their bfloat16 stacks carry the conv algorithm cuDNN
+    picks per batch size into differences of one or two bfloat16 spacings
+    over many pixels (SPADE on an NVIDIA H100 80GB HBM3: 0.0045 max, 8.8%
+    of pixels above 1e-3)."""
     from c2m_tpu_torch.models.c2m import DTYPES
     from c2m_tpu_torch.serving import ServingModel
     model = build_model(cfg).to(dev).use_compute_dtype(
@@ -1053,7 +1096,31 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile):
     solo = ServingModel(model, (sizes[i],),
                         use_gt_eval=server.use_gt_eval)(*reqs[i])
     padded = server(*reqs[i])
-    pad_err = float(np.abs(solo["generated"] - padded["generated"]).max())
+    d = np.abs(solo["generated"] - padded["generated"])
+    pad_err = float(d.max())
+    if structural:
+        log(f"  padded vs unpadded batch {sizes[i]} in {cfg.train_params.dtype}"
+            f": max|diff| generated {pad_err:.3g}, share of pixels off by "
+            f"more than {TOL_VARIANT_PIXEL}: "
+            f"{float((d > TOL_VARIANT_PIXEL).mean()):.3g} (not gated)")
+        model32 = build_model(cfg).to(dev)
+        servers = [ServingModel(model32, sizes_,
+                                use_gt_eval=server.use_gt_eval)
+                   for sizes_ in ((sizes[i],), buckets)]
+        errs = {}
+        for mixed in (False, True):
+            model32.train(mixed)        # train mode: batch statistics
+            with tf32_off():
+                solo, padded = (srv(*reqs[i])["generated"] for srv in servers)
+            errs[mixed] = float(np.abs(solo - padded).max())
+        log(f"  the same in float32, TF32 off: max|diff| generated "
+            f"{errs[False]:.3g} (tol {TOL_PAD_F32}); control with the rows "
+            f"mixed by batch statistics {errs[True]:.3g} (must exceed it)")
+        check(errs[False] <= TOL_PAD_F32,
+              f"padded rows differ by {errs[False]} > {TOL_PAD_F32}")
+        check(errs[True] > TOL_PAD_F32,
+              f"the row-mixing control stays under the gate: {errs[True]}")
+        return counts
     log(f"  padded vs unpadded batch {sizes[i]}: max|diff| generated "
         f"{pad_err:.3g} (tol {TOL_PAD:.3g})")
     check(pad_err <= TOL_PAD, f"padded rows differ by {pad_err} > {TOL_PAD}")
@@ -1148,8 +1215,9 @@ def train_batch(cfg, dev, batch_size, seed):
 
 def phase_train(cfg, dev, profile: bool, phase: int = 6,
                 what: str = "journal config", steps: int = 3,
-                launched=frozenset(FORWARD_128 | BACKWARD)):
-    """Phases 6 and 11: ``steps`` steps of the train step at ``cfg``."""
+                launched=frozenset(FORWARD_128 | BACKWARD), then=None):
+    """Phases 6, 11 and 13: ``steps`` steps of the train step at ``cfg``;
+    ``then(state)`` runs once the checks have passed."""
     from c2m_tpu_torch.nn.layers import BatchNorm, SpectralNormConv
     from c2m_tpu_torch.train.state import (GROUPS, create_train_state,
                                            param_group)
@@ -1245,6 +1313,8 @@ def phase_train(cfg, dev, profile: bool, phase: int = 6,
     if profile:
         profile_window(f"train_step ({what})",
                        lambda: step(state, batches[0]), min(times[1:]))
+    if then is not None:
+        then(state)
     return counts
 
 
@@ -1531,15 +1601,17 @@ def phase_program(cfg, dev):
         f"the card in {time.perf_counter() - t0:.1f} s, held in host memory")
     root = tempfile.mkdtemp(prefix="c2m_program_")
     try:
-        counts = program_steps(cfg, dev, root, train_set, val_set)
+        counts, spread_tol = program_steps(cfg, dev, root, train_set,
+                                           val_set)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, spread_tol
 
 
 def program_steps(cfg, dev, root, train_set, val_set):
-    """Phase 12's runs in ``root``; returns the launch counts by run."""
+    """Phase 12's runs in ``root``; returns the launch counts by run and
+    the gate that the card's own spread sets for a step after a step."""
     import shutil
     from c2m_tpu_torch.data.loader import DataLoader, collate
     from c2m_tpu_torch.eval.evaluator import Evaluator
@@ -1844,6 +1916,258 @@ def program_steps(cfg, dev, root, train_set, val_set):
         f"launches {counts['program_onthefly']}")
     del d
     release_memory()
+    return counts, tol
+
+
+# the generator variants (phase 13): the KITTI YAML as shipped, and the
+# journal config with the SPADE generator (no YAML of the repo sets it);
+# the parameters of each variant's own branch, which must get gradients;
+# the embedder's finest map (its up_0) conditions no SPADE block, so no
+# gradient reaches up_0 (none in the JAX package either)
+VARIANT_BRANCHES = {"kitti": ("first_warped", "down_warped_", "pre_decode"),
+                    "spade": ("flowembedder",)}
+NO_GRADIENT = "c2m.generator.flowembedder.up_0."
+
+
+def variant_configs(cfg):
+    from c2m_tpu_torch.config import load_config
+    spade = copy.deepcopy(cfg)
+    spade.model_params.generator.use_spade = True
+    return {"kitti": load_config(KITTI_YAML), "spade": spade}
+
+
+def check_branch_gradients(state, name):
+    """After a step, every module of the variant's branch holds finite,
+    non-zero gradients (they stay until the next step clears them)."""
+    for branch in VARIANT_BRANCHES[name]:
+        grads = [p.grad for n, p in state.model.named_parameters()
+                 if n.startswith(f"c2m.generator.{branch}")
+                 and not n.startswith(NO_GRADIENT)]
+        check(grads and all(g is not None for g in grads),
+              f"{name}: {branch} got no gradient")
+        peak = max(float(g.abs().max()) for g in grads)
+        check(np.isfinite(peak) and peak > 0,
+              f"{name}: {branch} gradient max|g| {peak}")
+        log(f"  {name}: {len(grads)} tensors of {branch}* hold gradients, "
+            f"max|g| {peak:.3g}")
+
+
+def export_and_serve(state, vcfg, dev, name):
+    """The trained variant exported and served from its artifact: equal to
+    the trained model's own inference, bit for bit."""
+    import shutil
+    import tempfile
+    from c2m_tpu_torch.serving import ServingModel, export_artifact
+    from c2m_tpu_torch.train.trainer import device_batch
+    art = tempfile.mkdtemp(prefix=f"c2m_{name}_artifact_")
+    try:
+        t0 = time.perf_counter()
+        export_artifact(art, vcfg, state.model, batch_sizes=(BUCKET,))
+        export_ms = (time.perf_counter() - t0) * 1e3
+        server = ServingModel.from_artifact(art, device=dev, use_gt_eval=True)
+        check(server.model.generator.p.use_spade
+              == vcfg.model_params.generator.use_spade
+              and server.model.generator.kitti == (name == "kitti"),
+              f"{name}: the artifact rebuilt another variant")
+        batch, z, click = requests(vcfg, dev, (BUCKET,))[0]
+        got = server(batch, z, click)["generated"]
+        model = state.model.eval()
+        with torch.inference_mode():
+            want = model.inference(device_batch(batch, dev),
+                                   torch.as_tensor(z, device=dev),
+                                   torch.as_tensor(click, device=dev),
+                                   use_gt_eval=True)["generated"]
+        err = float(np.abs(got - want.float().cpu().numpy()).max())
+        log(f"  {name}: exported in {export_ms:.1f} ms; the artifact served "
+            f"at bucket {BUCKET} vs the trained model's inference: max|diff| "
+            f"generated {err:.3g} (must be 0)")
+        check(err == 0.0, f"{name}: served artifact differs by {err}")
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+
+
+def variant_cpu_parity(vcfg, dev, name):
+    """Float32 inference at batch 1, card (kernels) vs CPU (plain versions),
+    under the structural gate of the variants: the full-resolution image
+    warp flips bilinear floor() where the dense flows differ in the last
+    bits, and InstanceNorm spreads a flip over its map."""
+    from c2m_tpu_torch.data.synthetic import make_batch
+    from c2m_tpu_torch.serving import z_dim
+    cfg32 = copy.deepcopy(vcfg)
+    cfg32.train_params.dtype = "float32"
+    cpu_model = build_model(cfg32)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    n = cfg32.dataset_params.max_objects
+    batch = make_batch(cfg32, batch_size=1, seed=17, num_objects=n,
+                       device=dev)
+    g = torch.Generator().manual_seed(17)
+    z = torch.randn(1, z_dim(cfg32), generator=g)
+    click = torch.zeros(1, n)
+    click[0, 2] = 1
+    outs = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        bt = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+        with torch.inference_mode():
+            o = model.inference(bt, z.to(d), click.to(d), True)
+        outs.append({k: v.float().cpu() for k, v in o.items()})
+    cpu, gpu = outs
+    d = (cpu["generated"] - gpu["generated"]).abs()
+    worst, share = float(d.max()), float((d > TOL_VARIANT_PIXEL).float().mean())
+    flow = float((cpu["dense_motion_bw"] - gpu["dense_motion_bw"]).abs().max())
+    log(f"  {name}: float32 at batch 1, card vs CPU: max|diff| generated "
+        f"{worst:.3g} (tol {TOL_VARIANT_MAX}), share of pixels off by more "
+        f"than {TOL_VARIANT_PIXEL}: {share:.3g} (tol {TOL_VARIANT_SHARE}); "
+        f"dense flow {flow:.3g}")
+    check(worst < TOL_VARIANT_MAX and share < TOL_VARIANT_SHARE,
+          f"{name}: card vs CPU beyond the structural gate")
+
+
+def image_warp_reads_once(dev):
+    """The variants' image warp passes each source image once for its T
+    frames (K1's ``frames``): output and flow gradient equal, bit for bit,
+    to the warp of the T-fold repeated image, at the request's and the
+    step's shapes (phase 3 holds both against the plain version)."""
+    from c2m_tpu_torch.ops.hopper.warp_kernels import resample
+    g = torch.Generator().manual_seed(23)
+    t, h, w = 5, 128, 256
+    for b in (BUCKET * t, 3 * t):
+        src = torch.rand(b // t, h, w, 3, generator=g).to(dev)
+        flow = smooth_flow(g, b, h, w, dev)
+        grad = torch.rand(b, h, w, 3, generator=g).to(dev)
+        outs = []
+        for image, frames in ((src.repeat_interleave(t, dim=0), 1), (src, t)):
+            f = flow.clone().requires_grad_()
+            out = resample(image, f, frames)
+            out.backward(grad)
+            outs.append((out.detach(), f.grad))
+        (out1, g1), (out_t, g_t) = outs
+        err = max(float((out1 - out_t).abs().max()),
+                  float((g1 - g_t).abs().max()))
+        log(f"  image warp [{b},{h},{w},3] with frames={t} against the "
+            f"repeated image: max|diff| output and flow gradient {err:.3g} "
+            f"(must be 0)")
+        check(err == 0.0, f"frames={t} image warp differs by {err}")
+
+
+def phase_variants(cfg, dev, profile: bool):
+    """Phase 13: the KITTI and the SPADE model at full width: serving,
+    three train steps, export -> serve, card vs CPU."""
+    log("[phase 13] the generator variants")
+    image_warp_reads_once(dev)
+    counts = {}
+    for name, vcfg in variant_configs(cfg).items():
+        t_phase = time.perf_counter()
+        gp = vcfg.model_params.generator
+        log(f"[phase 13] the {name} model at full width: dataset "
+            f"{vcfg.dataset_params.dataset!r}, use_spade {gp.use_spade}, "
+            f"{vcfg.train_params.input_size}, compute "
+            f"{vcfg.train_params.dtype}")
+        counts[f"{name}_serving"] = serve(
+            f"the {name} model", vcfg, dev, (BUCKET,),
+            ((BUCKET, True), (5, True), (BUCKET, False)), FORWARD_128,
+            profile, structural=True)
+        release_memory()
+
+        def then(state, vcfg=vcfg, name=name):
+            check_branch_gradients(state, name)
+            export_and_serve(state, vcfg, dev, name)
+        counts[f"{name}_train"] = phase_train(
+            vcfg, dev, profile, phase=13, what=f"{name} model", steps=3,
+            then=then)
+        release_memory()
+        with tf32_off():
+            variant_cpu_parity(vcfg, dev, name)
+        release_memory()
+        log(f"  the {name} model took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_nccl(cfg, dev, spread_tol: float):
+    """Phase 14: two Trainer steps at the journal config with a NCCL process
+    group of one rank (the gradient all-reduce, the norms' global sums and
+    the metrics' mean all run) against the same two steps with no group:
+    step 1 bit for bit, step 2 within the card's own spread (phase 12)."""
+    import shutil
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    from c2m_tpu_torch.data.dataset import SyntheticDataset
+    from c2m_tpu_torch.parallel import mesh
+    from c2m_tpu_torch.train.trainer import Trainer
+    cfg = copy.deepcopy(cfg)
+    cfg.dataset_params.dataset = "synthetic"
+    tp, vz = cfg.train_params, cfg.visualizer_params
+    vz.print_freq = vz.display_freq = vz.save_latest_freq = 10 ** 9
+    tp.eval_freq = 10 ** 9
+    vz.tf_log = False
+    cfg.checkpoint_params.save_epoch_freq = 1000
+    log(f"[phase 14] Trainer over NCCL at world size 1 against no process "
+        f"group: two steps at the journal config, batch {tp.batch_size}")
+    train_set = Held(SyntheticDataset(cfg, n=2 * tp.batch_size,
+                                      seed_offset=20_000, device=dev))
+    calls = {"global_sums": 0, "all_reduce_gradients": 0, "mean_metrics": 0}
+    originals = {k: getattr(mesh, k) for k in calls}
+
+    def counted(name):
+        def f(*args, **kwargs):
+            calls[name] += mesh.is_live()
+            return originals[name](*args, **kwargs)
+        return f
+    root = tempfile.mkdtemp(prefix="c2m_nccl_")
+    runs = {}
+    try:
+        for k in calls:
+            setattr(mesh, k, counted(k))
+        for live in (False, True):
+            if live:
+                with socket.socket() as sock:
+                    sock.bind(("localhost", 0))
+                    port = sock.getsockname()[1]
+                t0 = time.perf_counter()
+                mesh.init(0, 1, dev, init_method=f"tcp://localhost:{port}")
+                check(mesh.is_live() and dist.get_backend() == "nccl"
+                      and mesh.world_size() == 1, "no NCCL group of one rank")
+                log(f"  init_process_group('nccl', tcp://localhost:{port}, "
+                    f"world size 1) in {time.perf_counter() - t0:.2f} s")
+            try:
+                trainer = Trainer(cfg, train_set, None,
+                                  job_dir=os.path.join(root, str(live)),
+                                  device=dev)
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.fit(num_epochs=1, max_steps=2)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                runs[live] = (metrics_of(trainer.history, {1, 2}),
+                              read_launches(), ms)
+                del trainer
+            finally:
+                if live:
+                    mesh.shutdown()
+        check(not mesh.is_live(), "the process group outlived phase 14")
+    finally:
+        for k, f in originals.items():
+            setattr(mesh, k, f)
+        shutil.rmtree(root, ignore_errors=True)
+    (alone, _, ms_alone), (grouped, counts, ms_grouped) = runs[False], runs[True]
+    log(f"  collectives in the grouped run: {calls}; 2 steps in "
+        f"{ms_grouped:.1f} ms against {ms_alone:.1f} ms alone")
+    check(calls["all_reduce_gradients"] == 2 and calls["mean_metrics"] == 2
+          and calls["global_sums"] > 0, f"collectives not run: {calls}")
+    same1 = grouped[1] == alone[1]
+    rel2 = {k: abs(grouped[2][k] - v) / max(abs(v), 1e-6)
+            for k, v in alone[2].items()}
+    worst = max(rel2, key=rel2.get)
+    log(f"  step 1 metrics {'bit-equal' if same1 else 'DIFFER'}; step 2 worst "
+        f"relative difference {rel2[worst]:.3g} ({worst}; tol {spread_tol:.3g}"
+        f" from phase 12's spread)")
+    check(same1, f"step 1 under NCCL differs: {grouped[1]} vs {alone[1]}")
+    check(rel2[worst] <= spread_tol, f"step 2 under NCCL differs beyond "
+          f"the card's spread: {rel2}")
+    expect_launched(counts, FORWARD_128 | BACKWARD,
+                    "the trainer's steps under NCCL")
+    release_memory()
     return counts
 
 
@@ -1932,13 +2256,17 @@ def main() -> int:
     phase_long_raster_parity(long_cfg, dev)
     counts["long_train"] = phase_long_train(long_cfg, dev, profile)
     release_memory()
-    counts.update(phase_program(cfg, dev))
+    program_counts, spread_tol = phase_program(cfg, dev)
+    counts.update(program_counts)
+    release_memory()
+    counts.update(phase_variants(cfg, dev, profile))
+    counts["nccl"] = phase_nccl(cfg, dev, spread_tol)
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")
 
-    # launches: the sum over the five paths, each counted from 0 just
-    # before the path was driven; the comparisons of phase 3 are not in it
+    # launches: the sum over the paths, each counted from 0 just before the
+    # path was driven; the comparisons of phase 3 are not in it
     kernels = []
     for k in all_kernels():
         by_path = {f"launches_{path}": c[k.name] for path, c in counts.items()}

@@ -6,10 +6,20 @@ reference src/train.py + src/options/options.py).
       [--seed N] [--num-epochs N] [--max-steps N] [--job-dir DIR] \
       [--device cuda|cpu] [--profile]
 
-Runs on the card unless ``--device cpu`` is given. ``--device_ids`` is
-accepted for the reference CLI and ignored (one device per process).
-``--profile`` traces 7 steps with torch.profiler into ``<job_dir>/profile``
-and exits, as ``train.py`` does with jax.profiler.
+Runs on the card unless ``--device cpu`` is given. ``--profile`` traces 7
+steps with torch.profiler into ``<job_dir>/profile`` and exits, as
+``train.py`` does with jax.profiler.
+
+Data-parallel over N cards of one host, one process per card:
+
+  torchrun --nproc_per_node=N train_torch.py --config ...
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device
+cpu``) at ``train_params.batch_size`` clips per rank, as ``train.py``
+trains over every local device at that batch per host; rank 0 writes the
+job dir. Without ``torchrun``'s variables it runs as one process.
+``--device_ids`` is accepted for the reference CLI and ignored: the cards
+are the ranks'.
 """
 
 import argparse
@@ -38,12 +48,24 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from c2m_tpu_torch.device import resolve_device
+    from c2m_tpu_torch.parallel import mesh
+
+    if mesh.launched_by_torchrun():
+        device = mesh.init_from_env(args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return run(args, device)
+    finally:
+        mesh.shutdown()
+
+
+def run(args, device) -> int:
     from c2m_tpu_torch.config import load_config
     from c2m_tpu_torch.data.dataset import get_test_set, get_training_set
-    from c2m_tpu_torch.device import resolve_device
     from c2m_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
     if args.seed is not None:
         cfg.train_params.seed = args.seed
