@@ -1,7 +1,6 @@
-"""The port's copy of ``c2m_tpu/eval/detection_metric.py`` without
-``make_yolo_detector`` (the detector nets are not ported yet: the evaluator
-takes a detector callable). ``tests/test_torch_evaluator.py`` holds the copy to
-the original.
+"""The port of ``c2m_tpu/eval/detection_metric.py``: the metric copied
+(``tests/test_torch_evaluator.py`` holds the copy to the original) and
+``make_yolo_detector`` over the port's YOLOv3 (``eval/yolov3.py``).
 
 Detection-trajectory metric: "is the clicked object detected where the
 click asked for it?"
@@ -21,6 +20,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import numpy as np
+
+from c2m_tpu_torch.device import full_float32, resolve_device
 
 
 def _overlap(a, b) -> Optional[float]:
@@ -92,3 +93,36 @@ def compute_detection(detector: Callable, gt_frames: np.ndarray,
         mse_norm.append(float(err / (norm + 1e-6)))
     return {"mse": mse, "mse_normalized": mse_norm,
             "gt_detected": gt_hits, "pred_detected": pred_hits}
+
+
+def pad_416(images: np.ndarray) -> np.ndarray:
+    """YOLOv3's input as the reference makes it (utils_yolov3.py:80-86): a
+    top-left copy of [B, H, W, 3] into 416x416 zeros, cropped at 416."""
+    b, h, w = images.shape[:3]
+    pad = np.zeros((b, 416, 416, 3), np.float32)
+    pad[:, :min(h, 416), :min(w, 416)] = images[:, :416, :416]
+    return pad
+
+
+def make_yolo_detector(weights_path: Optional[str] = None,
+                       conf_thresh: float = 0.5, nms_thresh: float = 0.4,
+                       device=None) -> Optional[Callable]:
+    """A detector callable from the port's YOLOv3 with the weights of
+    ``weights_path`` (an npz of the JAX variables, or a darknet
+    ``.weights``); None without a path. Each call pads its images to
+    416x416 (:func:`pad_416`), runs the net on ``device`` (the card when
+    None) in float32 with TF32 off, and applies NMS on the host."""
+    if not weights_path:
+        return None
+    import torch
+    from c2m_tpu_torch.eval.yolov3 import load_yolov3, non_max_suppression
+    device = resolve_device(device)
+    model = load_yolov3(weights_path, device)
+
+    def detect(images: np.ndarray):
+        x = torch.from_numpy(pad_416(images)).to(device)
+        with torch.no_grad(), full_float32():
+            preds = model(x).cpu().numpy()
+        return [non_max_suppression(p, conf_thresh, nms_thresh) for p in preds]
+
+    return detect

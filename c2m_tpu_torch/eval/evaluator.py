@@ -11,14 +11,32 @@ inputs (FVD's doubled by the time-flip concat, evaluator.py:275-282), the
 GT-theta trajectory MSE and, with a detector, the detection-trajectory
 metric; ``results.txt``.
 
-The metric nets (InceptionV3, I3D, YOLOv3) are not ported yet: FID's and
-FVD's embedders and the detector are callables the caller may pass
-(``fid_embedder(images [N, H, W, 3]) -> [N, D]``, ``fvd_embedder(videos
-[N, T, H, W, 3]) -> [N, D]``, ``detector`` as in ``detection_metric``).
-Without them FID and FVD read NaN and no detection metric is written, as
-the JAX evaluator does without weights. The detection F1 and accuracy are
-sklearn's ``f1_score`` / ``accuracy_score`` of the paired binary lists,
-computed here without sklearn.
+The metric nets are built as the JAX evaluator builds them, from weights
+files named by environment variables, whenever the caller passes no
+callable of its own (``fid_embedder(images [N, H, W, 3]) -> [N, D]``,
+``fvd_embedder(videos [N, T, H, W, 3]) -> [N, D]``, ``detector`` as in
+``detection_metric``; a callable passed wins):
+
+- ``INCEPTION_WEIGHTS``: an npz of ``tools/convert_inception.py`` ->
+  InceptionV3 pool3 for FID (batches of 16, ``x * 2 - 1``, resized to
+  299x299); without it torchvision's checkpoint in the local torch hub
+  cache, if there (``fid.inception_embedder``; no download);
+- ``I3D_WEIGHTS``: an npz of ``tools/convert_i3d.py`` -> I3D for FVD
+  (batches of 16 videos, ``x * 2 - 1``, frames resized to 224x224,
+  endpoint ``"embedding"``);
+- ``YOLO_WEIGHTS``: an npz of the JAX YOLOv3 variables or a darknet
+  ``.weights`` -> the detector of the detection metric
+  (``detection_metric.make_yolo_detector``).
+
+The nets run on the evaluator's device in eval mode and in float32 with
+TF32 off inside their calls (restored after): a metric value is compared
+across runs and papers, and the reference computes it in full float32.
+Without a net FID / FVD read NaN and no detection metric is written, as
+the JAX evaluator does without weights. ``metric_nets`` names what was
+built; ``detector_frames`` counts the frames the detector was handed. The
+detection F1 and accuracy are sklearn's ``f1_score`` /
+``accuracy_score`` of the paired binary lists, computed here without
+sklearn.
 """
 
 from __future__ import annotations
@@ -31,7 +49,8 @@ import torch
 
 from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.eval import fid as fid_mod
-from c2m_tpu_torch.eval.detection_metric import compute_detection
+from c2m_tpu_torch.eval.detection_metric import (compute_detection,
+                                                 make_yolo_detector)
 from c2m_tpu_torch.models.sparse_motion import sample_click_indices
 from c2m_tpu_torch.parallel import mesh
 from c2m_tpu_torch.serving import z_dim
@@ -62,9 +81,19 @@ class Evaluator:
         self.device = (next(model.parameters()).device if model is not None
                        else torch.device("cpu"))
         self.job_dir = job_dir
-        self.detector = detector
-        self.fid_embedder = fid_embedder
-        self.fvd_embedder = fvd_embedder
+        self.metric_nets: Dict[str, str] = {}
+        if detector is None:
+            path = os.environ.get("YOLO_WEIGHTS")
+            detector = make_yolo_detector(path, device=self.device)
+            if detector is not None:
+                self.metric_nets["detector"] = f"YOLOv3 from {path}"
+        self.detector = (None if detector is None
+                         else self._counting(detector))
+        self.detector_frames = 0
+        self.fid_embedder = (fid_embedder if fid_embedder is not None
+                             else self._fid_embedder())
+        self.fvd_embedder = (fvd_embedder if fvd_embedder is not None
+                             else self._fvd_embedder())
         self.out_dir = os.path.join(job_dir, "eval")
         os.makedirs(self.out_dir, exist_ok=True)
         self.gallery = HTMLGallery(os.path.join(self.out_dir, "web"),
@@ -76,6 +105,41 @@ class Evaluator:
         self._traj_sq_err: List[float] = []
         self._det: Dict[str, list] = {"mse": [], "mse_normalized": [],
                                       "gt_detected": [], "pred_detected": []}
+
+    # -- the metric nets ------------------------------------------------------
+
+    def _counting(self, detector: Callable) -> Callable:
+        """The detector, adding the frames each call is handed to
+        ``detector_frames``."""
+        def detect(images):
+            self.detector_frames += len(images)
+            return detector(images)
+        return detect
+
+    def _fid_embedder(self) -> Optional[Callable]:
+        """InceptionV3 from ``INCEPTION_WEIGHTS``, else torchvision's
+        weights in the local hub cache, else None."""
+        from c2m_tpu_torch.eval.inception import load_inception
+        path = os.environ.get("INCEPTION_WEIGHTS", "")
+        if path and os.path.exists(path):
+            self.metric_nets["fid"] = f"InceptionV3 from {path}"
+            return fid_mod.embedder(load_inception(path, self.device),
+                                    (299, 299))
+        embed = fid_mod.inception_embedder(device=self.device)
+        if embed is not None:
+            self.metric_nets["fid"] = (
+                f"InceptionV3 from {fid_mod.hub_inception_checkpoint()}")
+        return embed
+
+    def _fvd_embedder(self) -> Optional[Callable]:
+        """I3D from ``I3D_WEIGHTS``, else None."""
+        from c2m_tpu_torch.eval.i3d import load_i3d
+        path = os.environ.get("I3D_WEIGHTS", "")
+        if not (path and os.path.exists(path)):
+            return None
+        self.metric_nets["fvd"] = f"I3D from {path}"
+        return fid_mod.embedder(load_i3d(path, self.device), (224, 224),
+                                endpoint="embedding")
 
     # -- inference ----------------------------------------------------------
 

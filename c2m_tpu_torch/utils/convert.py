@@ -30,6 +30,22 @@ filled, or the conversion raises. :func:`to_jax_variables` is the way back:
 it carries a port state_dict (for instance after an optimizer step) into
 the JAX layout. :func:`flownet2_from_jax` / :func:`flownet2_to_jax` are the
 same bridge for the FlowNet2 parameter tree.
+
+The evaluator's metric nets have a pair each, on the ``{'params',
+'batch_stats'}`` trees of the JAX package's ``eval/inception.py``,
+``eval/i3d.py`` and ``eval/yolov3.py`` (the npz files of
+``tools/convert_inception.py`` and ``tools/convert_i3d.py``, read and
+written by :func:`read_variables_npz` / :func:`write_variables_npz`):
+:func:`inception_from_jax` / :func:`inception_to_jax` (the port keeps
+torchvision's names, the JAX tree the same path with ``Conv_0`` /
+``BatchNorm_0`` below it), :func:`i3d_from_jax` / :func:`i3d_to_jax` (the
+port keeps the pytorch-i3d names ``b0``..``b3b`` / ``logits``, the JAX tree
+``Branch_0``..``Branch_3b`` / ``Logits``; kernels ``[kt, kh, kw, I, O]``
+<-> ``[O, I, kt, kh, kw]``) and :func:`yolov3_from_jax` /
+:func:`yolov3_to_jax` (the conv blocks of ``YoloV3.conv_blocks`` paired in
+darknet cfg order with flax's auto-numbered scopes,
+``eval/yolov3._conv_block_order``). Each consumes every JAX leaf once and
+fills every port tensor, or raises.
 """
 
 from __future__ import annotations
@@ -261,3 +277,141 @@ def flownet2_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The way back: a FlowNet2 ``state_dict`` -> the nested JAX ``params``
     tree of numpy arrays, float32."""
     return module_state_to_jax(_flownet2_skeleton(), state_dict)["params"]
+
+
+# -- the metric nets ----------------------------------------------------------
+
+def read_variables_npz(path: str) -> Dict:
+    """An npz of the JAX converters (``params`` and ``batch_stats``, each a
+    pickled nested dict of numpy arrays) -> ``{'params', 'batch_stats'}``."""
+    data = np.load(path, allow_pickle=True)
+    return {"params": data["params"].item(),
+            "batch_stats": data["batch_stats"].item()}
+
+
+def write_variables_npz(path: str, variables: Mapping) -> None:
+    """The way back of :func:`read_variables_npz`."""
+    np.savez(path, params=np.asarray(variables["params"], dtype=object),
+             batch_stats=np.asarray(variables["batch_stats"], dtype=object))
+
+
+_K2D = (lambda k: k.permute(3, 2, 0, 1), lambda w: w.permute(2, 3, 1, 0))
+_K3D = (lambda k: k.permute(4, 3, 0, 1, 2), lambda w: w.permute(2, 3, 4, 1, 0))
+_I3D_SCOPES = {"b0": "Branch_0", "b1a": "Branch_1a", "b1b": "Branch_1b",
+               "b2a": "Branch_2a", "b2b": "Branch_2b", "b3b": "Branch_3b",
+               "logits": "Logits"}
+
+
+def _conv_entries(port: str, scope: Tuple[str, ...], conv: str, bn,
+                  kernel, conv_scope: Tuple[str, ...] = ("Conv_0",)
+                  ) -> Iterator[Tuple[str, str, Callable, Callable]]:
+    """(port key, JAX path, JAX -> torch, torch -> JAX) of one conv block:
+    its conv ``{port}{conv}`` at ``scope/conv_scope`` in the JAX tree, then
+    the BatchNorm ``{port}{bn}`` at ``scope/BatchNorm_0`` or, when ``bn`` is
+    None, the conv's bias."""
+    c = "/".join(scope + conv_scope)
+    yield f"{port}{conv}.weight", f"params/{c}/kernel", *kernel
+    if bn is None:
+        yield f"{port}{conv}.bias", f"params/{c}/bias", _same, _same
+        return
+    b = "/".join(scope + ("BatchNorm_0",))
+    yield f"{port}{bn}.weight", f"params/{b}/scale", _same, _same
+    yield f"{port}{bn}.bias", f"params/{b}/bias", _same, _same
+    yield f"{port}{bn}.running_mean", f"batch_stats/{b}/mean", _same, _same
+    yield f"{port}{bn}.running_var", f"batch_stats/{b}/var", _same, _same
+
+
+def _metric_net(name: str):
+    """(skeleton on the meta device, its entries) of a metric net."""
+    from c2m_tpu_torch.eval import i3d, inception, yolov3
+    with torch.device("meta"):
+        net = {"inception": inception.InceptionV3Pool3, "i3d": i3d.InceptionI3d,
+               "yolov3": yolov3.YoloV3}[name]()
+    entries = []
+    if name == "inception":
+        for path, mod in net.named_modules():
+            if isinstance(mod, inception.BasicConv2d):
+                entries += _conv_entries(f"{path}.", tuple(path.split(".")),
+                                         "conv", "bn", _K2D)
+    elif name == "i3d":
+        for path, mod in net.named_modules():
+            if isinstance(mod, i3d.Unit3D):
+                scope = tuple(_I3D_SCOPES.get(p, p) for p in path.split("."))
+                entries += _conv_entries(f"{path}.", scope, "conv3d",
+                                         None if mod.bn is None else "bn",
+                                         _K3D)
+    else:
+        for (path, blk), (scope, has_bn) in zip(net.conv_blocks(),
+                                                yolov3._conv_block_order()):
+            assert has_bn == (blk.bn is not None), (path, scope)
+            if has_bn:
+                entries += _conv_entries(f"{path}.", scope, "conv", "bn", _K2D)
+            else:
+                entries += _conv_entries(f"{path}.", (), "conv", None, _K2D,
+                                         conv_scope=scope)
+    return net, entries
+
+
+def _metric_net_from_jax(name: str, variables: Mapping
+                         ) -> Dict[str, torch.Tensor]:
+    net, entries = _metric_net(name)
+    flat = flatten(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    used: Set[str] = set()
+    for key, path, to_torch, _ in entries:
+        if path not in flat:
+            raise KeyError(f"JAX variables lack {path}")
+        if path in used:
+            raise ValueError(f"JAX leaf {path} consumed twice")
+        used.add(path)
+        leaf = torch.from_numpy(np.asarray(flat[path], np.float32).copy())
+        sd[key] = to_torch(leaf).contiguous()
+    for key, ref in net.state_dict().items():
+        if key.endswith("num_batches_tracked"):      # no JAX counterpart
+            sd[key] = torch.zeros((), dtype=torch.long)
+        elif key not in sd:
+            raise KeyError(f"port tensor not filled: {key}")
+        elif tuple(sd[key].shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: JAX gives {tuple(sd[key].shape)}, the "
+                             f"port needs {tuple(ref.shape)}")
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"JAX leaves not consumed: {left[:8]}")
+    return sd
+
+
+def _metric_net_to_jax(name: str, state_dict: Mapping) -> Dict:
+    _, entries = _metric_net(name)
+    return unflatten({path: to_jax(state_dict[key].detach().cpu().float())
+                      .contiguous().numpy()
+                      for key, path, _, to_jax in entries})
+
+
+def inception_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionV3Pool3`` variables -> the port's state_dict."""
+    return _metric_net_from_jax("inception", variables)
+
+
+def inception_to_jax(state_dict: Mapping) -> Dict:
+    """The port's ``InceptionV3Pool3`` state_dict -> the nested JAX tree."""
+    return _metric_net_to_jax("inception", state_dict)
+
+
+def i3d_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionI3d`` variables -> the port's state_dict."""
+    return _metric_net_from_jax("i3d", variables)
+
+
+def i3d_to_jax(state_dict: Mapping) -> Dict:
+    """The port's ``InceptionI3d`` state_dict -> the nested JAX tree."""
+    return _metric_net_to_jax("i3d", state_dict)
+
+
+def yolov3_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``YoloV3`` variables -> the port's state_dict."""
+    return _metric_net_from_jax("yolov3", variables)
+
+
+def yolov3_to_jax(state_dict: Mapping) -> Dict:
+    """The port's ``YoloV3`` state_dict -> the nested JAX tree."""
+    return _metric_net_to_jax("yolov3", state_dict)

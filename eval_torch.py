@@ -10,6 +10,16 @@ set (z and clicks from a generator seeded with ``test_params.seed``), dumps
 gifs / pngs / flow and occlusion strips and an HTML page, computes the
 metrics it can and writes ``<job_dir>/eval/results.txt``. Runs on the card
 unless ``--device cpu`` is given; ``--device_ids`` is accepted and ignored.
+
+The metric nets come from weights files named by three environment
+variables, as for the JAX package's ``test.py``: ``INCEPTION_WEIGHTS`` (the
+npz of ``tools/convert_inception.py``: InceptionV3 for FID; without it
+torchvision's checkpoint in the local torch hub cache, if there),
+``I3D_WEIGHTS`` (the npz of ``tools/convert_i3d.py``: I3D for FVD) and
+``YOLO_WEIGHTS`` (an npz of the JAX YOLOv3 variables or a darknet
+``.weights``: the detector of the detection metric). The run prints which
+nets it built; without them FID and FVD read NaN and no detection metric
+is written.
 """
 
 import argparse
@@ -53,6 +63,9 @@ def main(argv=None) -> int:
     print(f"evaluating the checkpoint of step {state.step} (epoch {epoch})")
 
     evaluator = Evaluator(cfg, state.model, job_dir)
+    nets = evaluator.metric_nets
+    print("metric nets: " + ("; ".join(f"{k}: {v}" for k, v in nets.items())
+                             if nets else "none"), flush=True)
     generator = torch.Generator().manual_seed(cfg.test_params.seed)
     for bi, batch in enumerate(loader):
         if args.max_batches is not None and bi >= args.max_batches:
@@ -64,6 +77,10 @@ def main(argv=None) -> int:
 
     results = evaluator.generate_metrics()
     path = evaluator.write_metrics(results)
+    if evaluator.detector is not None:
+        print(f"detector ran on {evaluator.detector_frames} last frames; "
+              f"{len(evaluator._det['gt_detected'])} ground-truth detections "
+              f"matched")
     print(f"wrote {path}: {results}")
     return 0
 

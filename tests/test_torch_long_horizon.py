@@ -98,9 +98,12 @@ def test_inference_matches_jax(banded_route, use_gt):
     z = rng.randn(2, z_dim(port_cfg(cfg))).astype(np.float32)
     click = np.zeros((2, NODES), np.float32)
     click[[0, 1], [3, 17]] = 1
-    want = JaxGenerator(cfg).apply(
-        variables, to_jax(batch), jnp.asarray(z), jnp.asarray(click),
-        use_gt_eval=use_gt, method="inference")
+    # jitted: one compile of the graph, where an eager apply compiles each
+    # of its operations on its own (both cases on an 8-core CPU: 28 s
+    # against 80 s)
+    want = jax.jit(lambda v, b, zz, c: JaxGenerator(cfg).apply(
+        v, b, zz, c, use_gt_eval=use_gt, method="inference"))(
+        variables, to_jax(batch), jnp.asarray(z), jnp.asarray(click))
     model = port_model(cfg, variables)
     banded_route.clear()                 # make_batch rasterized its targets
     got = model.inference(to_torch(batch), torch.from_numpy(z),

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``c2m_tpu_torch/`` and not
-``chip_smoke.py``, ``kernel_ab.py``, ``train_torch.py`` or ``eval_torch.py``
-imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
+``chip_smoke.py``, ``kernel_ab.py``, ``train_torch.py``, ``eval_torch.py``
+or ``yolo_detect_torch.py`` imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
 ``optax``, at top level or inside any function. Every source is parsed with
 ``ast`` (docstrings that name the counterpart file are not imports and
 stay). Each entry point defaults to the card and says so where there is
@@ -22,7 +22,7 @@ FORBIDDEN = {"c2m_tpu", "jax", "jaxlib", "flax", "optax"}
 def _sources():
     paths = [os.path.join(REPO, name) for name in
              ("chip_smoke.py", "kernel_ab.py", "train_torch.py",
-              "eval_torch.py")]
+              "eval_torch.py", "yolo_detect_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "c2m_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -61,7 +61,13 @@ def test_the_walk_sees_the_port_and_catches_an_import(tmp_path):
             "c2m_tpu_torch/train/flow_onthefly.py",
             "c2m_tpu_torch/ops/correlation.py",
             "c2m_tpu_torch/ops/hopper/correlation_kernel.py",
-            "c2m_tpu_torch/ops/hopper/maskwarp_banded.py"} <= names
+            "c2m_tpu_torch/ops/hopper/maskwarp_banded.py",
+            "yolo_detect_torch.py",
+            "c2m_tpu_torch/eval/inception.py",
+            "c2m_tpu_torch/eval/i3d.py",
+            "c2m_tpu_torch/eval/yolov3.py",
+            "c2m_tpu_torch/eval/detection_metric.py",
+            "c2m_tpu_torch/utils/convert.py"} <= names
     probe = tmp_path / "probe.py"
     probe.write_text('"""from c2m_tpu import x (a docstring)"""\n'
                      "def f():\n    from c2m_tpu.config import Config\n"
@@ -75,7 +81,7 @@ import importlib, os, pkgutil, sys
 import c2m_tpu_torch
 for m in pkgutil.walk_packages(c2m_tpu_torch.__path__, "c2m_tpu_torch."):
     importlib.import_module(m.name)
-import chip_smoke, eval_torch, train_torch
+import chip_smoke, eval_torch, train_torch, yolo_detect_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("c2m_tpu", "jax", "jaxlib", "flax", "optax"))
 assert not bad, bad
@@ -94,6 +100,8 @@ def test_importing_every_module_loads_nothing_of_jax():
 def _entry_points():
     import eval_torch
     import train_torch
+    import yolo_detect_torch
+    from c2m_tpu_torch.eval.detection_metric import make_yolo_detector
     from c2m_tpu_torch.config import shrink_model, tiny_config
     from c2m_tpu_torch.data.dataset import SyntheticDataset
     from c2m_tpu_torch.data.synthetic import make_batch
@@ -116,6 +124,10 @@ def _entry_points():
             ["--config", "/nonexistent.yaml"]),
         "eval_torch.main": lambda: eval_torch.main(
             ["--config", "/nonexistent.yaml"]),
+        "yolo_detect_torch.main": lambda: yolo_detect_torch.main(
+            ["--image-folder", "/nonexistent", "--weights",
+             "/nonexistent.npz"]),
+        "make_yolo_detector": lambda: make_yolo_detector("/nonexistent.npz"),
     }
 
 
@@ -123,7 +135,9 @@ def _entry_points():
                                   "ServingModel.from_artifact",
                                   "create_train_state", "OnTheFlyFlow",
                                   "SyntheticDataset", "Trainer",
-                                  "train_torch.main", "eval_torch.main"])
+                                  "train_torch.main", "eval_torch.main",
+                                  "yolo_detect_torch.main",
+                                  "make_yolo_detector"])
 def test_entry_point_defaults_to_the_card(name):
     """With no ``device`` an entry point asks for the card. This host has
     none, so it must raise an error that names CUDA, before anything else
