@@ -12,7 +12,10 @@ Ported so far: the serving path (``C2MGenerator.inference`` behind
 (``train.state``, ``train.step`` around ``train.model.C2MTrainModel``), and
 the program around it: ``data`` (datasets, loader), ``train.trainer``,
 ``utils.checkpoint``, ``eval.evaluator``, with ``train_torch.py`` and
-``eval_torch.py`` at the repository's root. Public functions take
+``eval_torch.py`` at the repository's root; the evaluation's metric nets;
+and the preprocessing chain that makes the training data
+(``models.panoptic_deeplab``, ``models.siamrpn``, ``native``, the CLIs of
+``tools``). Public functions take
 channels-last tensors (``[B, H, W, C]``, ``[B, T, H, W, C]``), as the JAX
 package does. Entry points run on the card unless asked for the CPU.
 

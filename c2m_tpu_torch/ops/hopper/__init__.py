@@ -182,3 +182,14 @@ def require(cond: bool, msg) -> None:
     text, so that a check on every launch formats nothing when it holds."""
     if not cond:
         raise ValueError(msg() if callable(msg) else msg)
+
+
+def all_kernels():
+    """Every hand-written kernel's ``Kernel`` record (name, source, the TPU
+    kernel it replaces, its launch count)."""
+    from c2m_tpu_torch.ops.hopper import (correlation_kernel, maskwarp_banded,
+                                          maskwarp_kernel, splat_kernel,
+                                          warp_kernels)
+    return (warp_kernels.KERNELS + maskwarp_kernel.KERNELS
+            + maskwarp_banded.KERNELS + splat_kernel.KERNELS
+            + correlation_kernel.KERNELS)

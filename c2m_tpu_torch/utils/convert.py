@@ -46,10 +46,19 @@ port keeps the pytorch-i3d names ``b0``..``b3b`` / ``logits``, the JAX tree
 darknet cfg order with flax's auto-numbered scopes,
 ``eval/yolov3._conv_block_order``). Each consumes every JAX leaf once and
 fills every port tensor, or raises.
+
+The preprocessing nets have a pair each, on the trees of
+``tools/convert_panoptic.py`` and ``tools/convert_siamrpn.py``:
+:func:`panoptic_from_jax` / :func:`panoptic_to_jax` and
+:func:`siamrpn_from_jax` / :func:`siamrpn_to_jax`. The port keeps the
+torch checkpoints' own names, and each key maps to its JAX path by those
+converters' rules; the same checks apply (that converter for SiamRPN++
+reports no unmapped key, this bridge does).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, Iterator, Mapping, Set, Tuple
 
 import numpy as np
@@ -352,9 +361,11 @@ def _metric_net(name: str):
     return net, entries
 
 
-def _metric_net_from_jax(name: str, variables: Mapping
-                         ) -> Dict[str, torch.Tensor]:
-    net, entries = _metric_net(name)
+def _from_entries(net: nn.Module, entries, variables: Mapping
+                  ) -> Dict[str, torch.Tensor]:
+    """``net``'s state_dict from JAX variables along ``entries`` (port key,
+    JAX path, JAX -> torch, torch -> JAX): every JAX leaf consumed once,
+    every port tensor filled with its shape, or this raises."""
     flat = flatten(variables)
     sd: Dict[str, torch.Tensor] = {}
     used: Set[str] = set()
@@ -380,11 +391,20 @@ def _metric_net_from_jax(name: str, variables: Mapping
     return sd
 
 
-def _metric_net_to_jax(name: str, state_dict: Mapping) -> Dict:
-    _, entries = _metric_net(name)
+def _to_entries(entries, state_dict: Mapping) -> Dict:
+    """The way back of :func:`_from_entries`: the nested JAX tree."""
     return unflatten({path: to_jax(state_dict[key].detach().cpu().float())
                       .contiguous().numpy()
                       for key, path, _, to_jax in entries})
+
+
+def _metric_net_from_jax(name: str, variables: Mapping
+                         ) -> Dict[str, torch.Tensor]:
+    return _from_entries(*_metric_net(name), variables)
+
+
+def _metric_net_to_jax(name: str, state_dict: Mapping) -> Dict:
+    return _to_entries(_metric_net(name)[1], state_dict)
 
 
 def inception_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -415,3 +435,190 @@ def yolov3_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 def yolov3_to_jax(state_dict: Mapping) -> Dict:
     """The port's ``YoloV3`` state_dict -> the nested JAX tree."""
     return _metric_net_to_jax("yolov3", state_dict)
+
+
+# -- the preprocessing nets ---------------------------------------------------
+#
+# Panoptic-DeepLab and SiamRPN++ carry the torch checkpoints' own names
+# (Bowen Cheng's and pysot's), so their bridge maps each port key to its JAX
+# path by the rules of ``tools/convert_panoptic.py`` and
+# ``tools/convert_siamrpn.py``: a conv + BatchNorm pair of the checkpoint is
+# one JAX scope holding ``Conv_0`` and ``BatchNorm_0``.
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+_SAME = (_same, _same)
+
+
+def _conv_or_bn(scope: str, is_conv: bool, leaf: str):
+    """(JAX path, (JAX -> torch, torch -> JAX)) of a conv weight or a
+    BatchNorm tensor of the JAX scope ``scope``."""
+    if is_conv:
+        if leaf != "weight":
+            raise KeyError(f"a bias-free conv has no {leaf}")
+        return f"params/{scope}/Conv_0/kernel", _K2D
+    coll, name = _BN_LEAVES[leaf]
+    return f"{coll}/{scope}/BatchNorm_0/{name}", _SAME
+
+
+def _panoptic_entry(key: str):
+    """A ``PanopticDeepLab`` state_dict key -> (JAX path, transforms)."""
+    fm = re.fullmatch
+    m = fm(r"backbone\.(conv|bn)([12])\.(\w+)", key)
+    if m:
+        return _conv_or_bn(f"backbone/stem{m[2]}", m[1] == "conv", m[3])
+    m = fm(r"backbone\.layer1\.(\d+)\.(conv|bn)(\d)\.(\w+)", key)
+    if m:
+        return _conv_or_bn(f"backbone/layer1_{m[1]}/ConvBNRelu_"
+                           f"{int(m[3]) - 1}", m[2] == "conv", m[4])
+    m = fm(r"backbone\.layer1\.(\d+)\.downsample\.([01])\.(\w+)", key)
+    if m:
+        return _conv_or_bn(f"backbone/layer1_{m[1]}/downsample", m[2] == "0",
+                           m[3])
+    m = fm(r"backbone\.transition(\d)\.(\d+)\.(?:(\d+)\.)?([01])\.(\w+)", key)
+    if m:
+        t, i, j, idx, leaf = m.groups()
+        scope = f"backbone/transition{t}_{i}" + ("" if j is None else f"_{j}")
+        return _conv_or_bn(scope, idx == "0", leaf)
+    m = fm(r"backbone\.stage(\d)\.(\d+)\.branches\.(\d+)\.(\d+)\.(conv|bn)"
+           r"(\d)\.(\w+)", key)
+    if m:
+        s, mod, br, blk, kind, n, leaf = m.groups()
+        return _conv_or_bn(f"backbone/stage{s}_{mod}/branch{br}_block{blk}/"
+                           f"ConvBNRelu_{int(n) - 1}", kind == "conv", leaf)
+    m = fm(r"backbone\.stage(\d)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\."
+           r"(?:(\d+)\.)?([01])\.(\w+)", key)
+    if m:
+        s, mod, i, j, k, idx, leaf = m.groups()
+        scope = (f"backbone/stage{s}_{mod}/fuse_{i}_{j}"
+                 + ("" if k is None else f"_{k}"))
+        return _conv_or_bn(scope, idx == "0", leaf)
+    m = fm(r"decoder\.(semantic|instance)_decoder\.aspp\.convs\.(\d)\."
+           r"(?:aspp_pooling\.)?(\d)\.(\w+)", key)
+    if m:
+        which, branch, idx, leaf = m.groups()
+        if branch == "4":            # image pooling: a bare conv, no BN
+            if (idx, leaf) != ("1", "weight"):
+                raise KeyError(key)
+            return f"params/{which}_decoder/aspp/pool_conv/kernel", _K2D
+        sub = "conv1x1" if branch == "0" else f"rate{int(branch) - 1}"
+        return _conv_or_bn(f"{which}_decoder/aspp/{sub}", idx == "0", leaf)
+    m = fm(r"decoder\.(semantic|instance)_decoder\.aspp\.project\.([01])\."
+           r"(\w+)", key)
+    if m:
+        return _conv_or_bn(f"{m[1]}_decoder/aspp/project", m[2] == "0", m[3])
+    m = fm(r"decoder\.(semantic|instance)_decoder\.project\.(\d)\.([01])\."
+           r"(\w+)", key)
+    if m:
+        return _conv_or_bn(f"{m[1]}_decoder/project_{m[2]}", m[3] == "0",
+                           m[4])
+    # a depthwise-separable conv: .0.{0,1} depthwise conv + BN, .1 / .2
+    # pointwise conv / BN
+    m = fm(r"decoder\.(semantic|instance)_decoder\.fuse\.(\d)\.0\."
+           r"(?:0\.([01])|([12]))\.(\w+)", key)
+    if m:
+        which, i, dw, pw, leaf = m.groups()
+        if dw is not None:
+            return _conv_or_bn(f"{which}_decoder/fuse_{i}/dw", dw == "0", leaf)
+        return _conv_or_bn(f"{which}_decoder/fuse_{i}/pw", pw == "1", leaf)
+    m = fm(r"decoder\.(?:semantic|instance)_head\.classifier\."
+           r"(semantic|center|offset)\.(?:0\.0\.(?:0\.([01])|([12]))|1)\."
+           r"(\w+)", key)
+    if m:
+        name, dw, pw, leaf = m.groups()
+        head = f"{name}_head"
+        if dw is not None:
+            return _conv_or_bn(f"{head}/conv/dw", dw == "0", leaf)
+        if pw is not None:
+            return _conv_or_bn(f"{head}/conv/pw", pw == "1", leaf)
+        if leaf == "weight":
+            return f"params/{head}/out/kernel", _K2D
+        return f"params/{head}/out/bias", _SAME
+    raise KeyError(f"no JAX path known for the Panoptic-DeepLab key {key}")
+
+
+def _siamrpn_entry(key: str):
+    """A ``SiamRPNpp`` state_dict key -> (JAX path, transforms)."""
+    fm = re.fullmatch
+    m = fm(r"rpn_head\.(cls|loc)_weight", key)
+    if m:
+        return f"params/{m[1]}_weight", _SAME
+    m = fm(r"backbone\.(conv|bn)1\.(\w+)", key)
+    if m:
+        return _conv_or_bn("backbone/conv1", m[1] == "conv", m[2])
+    m = fm(r"backbone\.layer(\d)\.(\d+)\.(conv|bn)(\d)\.(\w+)", key)
+    if m:
+        l, b, kind, k, leaf = m.groups()
+        return _conv_or_bn(f"backbone/layer{l}_{b}/conv{k}", kind == "conv",
+                           leaf)
+    m = fm(r"backbone\.layer(\d)\.(\d+)\.downsample\.([01])\.(\w+)", key)
+    if m:
+        return _conv_or_bn(f"backbone/layer{m[1]}_{m[2]}/downsample",
+                           m[3] == "0", m[4])
+    m = fm(r"neck\.downsample(\d)\.downsample\.([01])\.(\w+)", key)
+    if m:
+        return _conv_or_bn(f"neck_{int(m[1]) - 2}/downsample", m[2] == "0",
+                           m[3])
+    m = fm(r"rpn_head\.rpn(\d)\.(cls|loc)\.(conv_kernel|conv_search|head)\."
+           r"(\d)\.(\w+)", key)
+    if m:
+        n, branch, part, idx, leaf = m.groups()
+        base = f"rpn_{int(n) - 2}/{branch}"
+        if part != "head":                   # Sequential(conv, BN, ReLU)
+            sub = "kernel_conv" if part == "conv_kernel" else "search_conv"
+            return _conv_or_bn(f"{base}/{sub}", idx == "0", leaf)
+        if idx in ("0", "1"):               # [conv, BN, ReLU, conv + bias]
+            return _conv_or_bn(f"{base}/head1", idx == "0", leaf)
+        if idx == "3":
+            if leaf == "weight":
+                return f"params/{base}/head2/kernel", _K2D
+            return f"params/{base}/head2/bias", _SAME
+    raise KeyError(f"no JAX path known for the SiamRPN++ key {key}")
+
+
+def _keyed_entries(keys, entry, prefix: str = ""):
+    """(port key, JAX path, JAX -> torch, torch -> JAX) of each state_dict
+    key (``num_batches_tracked`` has no JAX counterpart), mapped by
+    ``entry`` after ``prefix``: a submodule of the whole net takes the
+    prefix of its keys there, with its variables nested at its scope in the
+    whole net's tree (as the tests convert submodules)."""
+    out = []
+    for key in keys:
+        if not key.endswith("num_batches_tracked"):
+            path, (to_torch, to_jax) = entry(prefix + key)
+            out.append((key, path, to_torch, to_jax))
+    return out
+
+
+def panoptic_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``PanopticDeepLab`` variables (``{'params', 'batch_stats'}``, the
+    npz of ``tools/convert_panoptic.py``) -> the port's state_dict."""
+    from c2m_tpu_torch.models.panoptic_deeplab import PanopticDeepLab
+    with torch.device("meta"):
+        net = PanopticDeepLab()
+    return _from_entries(net, _keyed_entries(net.state_dict(),
+                                             _panoptic_entry), variables)
+
+
+def panoptic_to_jax(state_dict: Mapping) -> Dict:
+    """The port's ``PanopticDeepLab`` state_dict -> the nested JAX
+    ``{'params', 'batch_stats'}`` tree."""
+    return _to_entries(_keyed_entries(state_dict, _panoptic_entry),
+                       state_dict)
+
+
+def siamrpn_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``SiamRPNpp`` variables (the npz of ``tools/convert_siamrpn.py``)
+    -> the port's state_dict."""
+    from c2m_tpu_torch.models.siamrpn import SiamRPNpp
+    with torch.device("meta"):
+        net = SiamRPNpp()
+    return _from_entries(net, _keyed_entries(net.state_dict(),
+                                             _siamrpn_entry), variables)
+
+
+def siamrpn_to_jax(state_dict: Mapping) -> Dict:
+    """The port's ``SiamRPNpp`` state_dict -> the nested JAX tree."""
+    return _to_entries(_keyed_entries(state_dict, _siamrpn_entry),
+                       state_dict)

@@ -124,9 +124,29 @@ Phases (any failure raises and the script exits non-zero):
      detector on 2 x 2 x 12 last frames; finite FID and FVD) against phase
      12's ms per batch without them, and peak memory; eval_torch.py as a
      subprocess on a saved checkpoint and the synthetic val set, and
-     yolo_detect_torch.py on two frames (a .txt and a .png each).
+     yolo_detect_torch.py on two frames (a .txt and a .png each);
+ 16. the preprocessing chain, seeded weights (BatchNorm statistics from one
+     forward of the inputs each net then sees, residual branches damped:
+     damp_residuals_) through the bridge into npz files of the JAX
+     converters' format, read back bit for bit: Panoptic-DeepLab card vs
+     CPU in float32 (TF32 off) at [1,512,1024,3] on all three heads within
+     TOL_PRE_NET, postprocess card vs CPU equal map for map, then at
+     Cityscapes' full frame [1,1024,2048,3] on the card: ms per frame
+     (around the call, device time), postprocess ms, centers, peak memory,
+     the share of semantic pixels TF32 changes; SiamRPN++ features and
+     heads card vs CPU, one tracker card vs CPU over 9 frames of 1024x2048
+     (the same anchors, boxes within TOL_BOX px; ms per track() call) and
+     evaluate_tracker (OPE) with it; then the CLIs as subprocesses on a
+     synthetic city of 30 raw 1024x2048 frames with a moving car:
+     generate_segmentation (2 frames), generate_trajectories (9 rows with
+     the crafted motion), tools/preprocess_images.py and generate_lists.py
+     to the journal 128x256, precompute_flow at the journal config (K5 and
+     K4, 2(T-1) launches each, counted in its process: the kernels line's
+     launches_preprocess), the port's get_training_set and one Trainer step
+     on the clip, evaluate_cityscapes on the crafted maps (IoU 1.0).
 With --profile, torch.profiler splits one warm train step and one warm
-request of each config by operator and by kernel (printed).
+request of each config, the full-frame Panoptic-DeepLab and one track()
+call by operator and by kernel (printed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero at once when no
@@ -135,6 +155,7 @@ CUDA device is visible. Imports nothing of JAX and nothing of c2m_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -221,6 +242,16 @@ TOL_PAD_F32 = 1e-4
 # Read 2.38e-5 / 1.08e-5 (embedding), 4.27e-6 (logits) / 1.64e-5 on an
 # NVIDIA H100 80GB HBM3 at 700 W: the gate is 4x the largest
 TOL_NET = 1e-4
+# the preprocessing nets (phase 16), card vs CPU in float32 with TF32 off,
+# max |d| relative to the largest CPU output: Panoptic-DeepLab (~300 conv +
+# BatchNorm layers, HRNet's fusions summing up to four branches) on all
+# three heads, SiamRPN++'s features and heads (residual branches damped,
+# damp_residuals_); the same float32 sums in other orders
+TOL_PRE_NET = 1e-4
+# the tracker's boxes card vs CPU, px: the heads' float32 differences
+# (~1e-5 of outputs of order 5) scaled by the anchors (64-184 px) over
+# scale_z, carried from frame to frame
+TOL_BOX = 1e-3
 
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -866,6 +897,10 @@ def phase_kernels(dev):
         correlation_case((2, 64, 128, 256), "512x1024 pairs")]
     # K4 at the on-the-fly call's 30 frame pairs (FlowNet2's confidence)
     rows["corresponding_map"]["onthefly"] = splat_case(30, "onthefly")
+    # K5 and K4 at precompute_flow's one frame pair a call (journal config)
+    rows["correlation"]["precompute"] = correlation_case((1, 16, 32, 256),
+                                                         "precompute")
+    rows["corresponding_map"]["precompute"] = splat_case(1, "precompute")
     # K1 and K4 at the long-horizon shapes: 10 folded frames per clip in
     # the train step, 40 in a bucket-4 request; the four decoder skips and
     # the bottleneck are the five bf16 launches of a request or a step
@@ -1206,12 +1241,8 @@ def phase_cpu_parity(cfg, dev):
 
 
 def all_kernels():
-    from c2m_tpu_torch.ops.hopper import (correlation_kernel, maskwarp_banded,
-                                          maskwarp_kernel, splat_kernel,
-                                          warp_kernels)
-    return (warp_kernels.KERNELS + maskwarp_kernel.KERNELS
-            + maskwarp_banded.KERNELS + splat_kernel.KERNELS
-            + correlation_kernel.KERNELS)
+    from c2m_tpu_torch.ops.hopper import all_kernels as kernels
+    return kernels()
 
 
 def reset_launches():
@@ -2254,6 +2285,19 @@ def net_error(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
                rel(got[..., 2:4].log(), want[..., 2:4].log()))
 
 
+def round_trip(net, to_jax, from_jax, path: str, name: str) -> dict:
+    """The net's state through the bridge into an npz of the JAX
+    converters' format and back, bit for bit; returns the state read back."""
+    from c2m_tpu_torch.utils import convert
+    state = {k: v.cpu() for k, v in net.state_dict().items()}
+    convert.write_variables_npz(path, to_jax(state))
+    back = from_jax(convert.read_variables_npz(path))
+    same = all(torch.equal(back[k], v) for k, v in state.items()
+               if not k.endswith("num_batches_tracked"))
+    check(same, f"{name}: the npz round trip is not bit for bit")
+    return back
+
+
 def phase_metric_nets(cfg, dev, smi: str, eval_ms_plain) -> dict:
     """Phase 15: InceptionV3, I3D and YOLOv3 at full input size: seeded
     weights through the bridge's npz (bit for bit), card vs CPU, times per
@@ -2306,16 +2350,10 @@ def phase_metric_nets(cfg, dev, smi: str, eval_ms_plain) -> dict:
             net = seeded_net_(cls(), SEED + seed).to(dev).eval()
             with full_float32():
                 calibrate_bn_(net, calib)
-            state = {k: v.cpu() for k, v in net.state_dict().items()}
             path = os.path.join(root, f"{name}.npz")
-            convert.write_variables_npz(path, getattr(
-                convert, f"{name}_to_jax")(state))
+            round_trip(net, getattr(convert, f"{name}_to_jax"),
+                       getattr(convert, f"{name}_from_jax"), path, name)
             env[var] = path
-            back = getattr(convert, f"{name}_from_jax")(
-                convert.read_variables_npz(path))
-            same = all(torch.equal(back[k], v) for k, v in state.items()
-                       if not k.endswith("num_batches_tracked"))
-            check(same, f"{name}: the npz round trip is not bit for bit")
             card, cpu = load(path, dev), load(path, "cpu")
             endpoints = ("embedding", "logits") if name == "i3d" else (None,)
             for ep in endpoints:
@@ -2514,6 +2552,549 @@ def metric_net_entry_points(cfg, root, val_set, env, dev) -> None:
           f"yolo_detect_torch.py wrote {files}")
 
 
+# -- phase 16: the preprocessing chain ----------------------------------------
+
+PRE_FULL = (1024, 2048)          # Cityscapes' frame
+PRE_PARITY = (512, 1024)         # Panoptic-DeepLab card vs CPU
+PRE_CITY = "syntown"
+PRE_CAR_IID = 13001              # car trainId 13 * 1000 + 1
+TOOLS = "c2m_tpu_torch.tools."
+# the tracked box (h, w): a car some 40 m away in a Cityscapes frame. A box
+# is cropped at about 1.8x its size and scaled to 127 px, so a smaller box
+# is magnified more and the heads' float32 differences move its boxes less
+PRE_BOX = (36, 48)
+
+
+def pre_car_box(f):
+    """The synthetic city's car in raw frame f: x, y, w, h (2048x1024)."""
+    return 240 + 16 * f, 320, 320, 192
+
+
+class Pair(torch.nn.Module):
+    """``net(pair)`` -> ``net.inner(*pair)``: lets ``calibrate_bn_`` run a
+    two-input net (SiamRPN++'s template and search) in one forward."""
+
+    def __init__(self, inner: torch.nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, pair):
+        return self.inner(*pair)
+
+
+def bn_scales_near_one_(net: torch.nn.Module, seed: int) -> None:
+    """Every BatchNorm scale := 1 +- 0.1. ``seeded_net_`` does that for
+    parameters named ``bn.weight``; the preprocessing nets keep their
+    checkpoints' names (``bn1``, a Sequential's ``1``)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                mod.weight.copy_(
+                    1 + (torch.rand(mod.weight.shape, generator=g) * 2 - 1)
+                    * 0.1)
+
+
+def damp_residuals_(net: torch.nn.Module, scale: float = 0.25) -> None:
+    """The last BatchNorm scale of every residual branch times ``scale``:
+    ``bn3`` of SiamRPN++'s and HRNet's bottlenecks, ``bn2`` of HRNet's
+    basic blocks. With unit residual branches these random deep nets
+    amplify float32 rounding layer after layer, in the JAX package and the
+    port alike: a tracker then carries it over frames into its boxes, and
+    card and CPU part by several times TOL_PRE_NET. Trained ResNets keep
+    their residual branches small (torchvision's ``zero_init_residual``);
+    phase 16 prints each net's float32 error against float64 on the card
+    as damped here."""
+    from c2m_tpu_torch.models import panoptic_deeplab, siamrpn
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, (siamrpn.Bottleneck,
+                                panoptic_deeplab.BottleneckBlock)):
+                mod.bn3.weight.mul_(scale)
+            elif isinstance(mod, panoptic_deeplab.BasicBlock):
+                mod.bn2.weight.mul_(scale)
+
+
+def float64_error(net: torch.nn.Module, args, got) -> float:
+    """max |got - net(args) in float64| over max |float64 output|, the
+    worst over the outputs, on the card: the float32 error of ``got``."""
+    ref = copy.deepcopy(net).double()
+    with torch.no_grad():
+        want = ref(*[a.double() for a in args])
+    want = list(want.values()) if isinstance(want, dict) else list(want)
+    got = list(got.values()) if isinstance(got, dict) else list(got)
+    del ref
+    return max(float((g.double() - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def cudnn_search():
+    """``torch.backends.cudnn.benchmark`` on inside the block (cuDNN times
+    its algorithms per shape and keeps the fastest; off by default, as the
+    port runs), restored after: for the record of what it would give."""
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+def centers_of(center: torch.Tensor, threshold: float = 0.1) -> int:
+    """The peaks ``postprocess`` keeps before its top_k cut: a 7x7 max-pool
+    NMS above the threshold."""
+    heat = center[..., 0]
+    pooled = torch.nn.functional.max_pool2d(heat[None, None], 7, stride=1,
+                                            padding=3)[0, 0]
+    return int(((heat >= pooled) & (heat > threshold)).sum())
+
+
+def preprocess_panoptic(dev, root: str, profile: bool) -> str:
+    """Panoptic-DeepLab: seeded weights through the bridge, card vs CPU at
+    PRE_PARITY on all three heads, postprocess card vs CPU, then the full
+    frame on the card timed (and split by torch.profiler with
+    ``profile``); returns the npz path."""
+    from c2m_tpu_torch.models.panoptic_deeplab import (PanopticDeepLab,
+                                                       postprocess)
+    from c2m_tpu_torch.ops.warp import resize_bilinear
+    from c2m_tpu_torch.tools.generate_segmentation import MEAN, STD
+    from c2m_tpu_torch.utils import convert
+    frames = (smooth_frames(2, *PRE_FULL, SEED + 16) - MEAN) / STD
+    x_full = torch.from_numpy(frames.astype(np.float32))
+    net = seeded_net_(PanopticDeepLab(), SEED + 16)
+    bn_scales_near_one_(net, SEED + 16)
+    damp_residuals_(net)
+    net = net.to(dev).eval()
+    with full_float32():
+        calibrate_bn_(net, x_full[:1].to(dev))
+    path = os.path.join(root, "panoptic.npz")
+    back = round_trip(net, convert.panoptic_to_jax, convert.panoptic_from_jax,
+                      path, "Panoptic-DeepLab")
+    cpu = PanopticDeepLab()
+    cpu.load_state_dict(back)
+    cpu.eval()
+    n_params = sum(p.numel() for p in net.parameters())
+    with torch.no_grad(), full_float32():
+        x = resize_bilinear(x_full[1:], PRE_PARITY)
+        got = net(x.to(dev))
+        t0 = time.perf_counter()
+        want = cpu(x)
+        cpu_s = time.perf_counter() - t0
+        f64 = float64_error(net, (x.to(dev),), got)
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()
+                     / want[k].abs().max()) for k in want}
+    log(f"  Panoptic-DeepLab (HRNet-48), {n_params / 1e6:.1f}M seeded "
+        f"parameters, npz round trip bit for bit; card vs CPU at "
+        f"[1,{PRE_PARITY[0]},{PRE_PARITY[1]},3], TF32 off (CPU "
+        f"{cpu_s:.1f} s): max|d| / max|CPU| "
+        + ", ".join(f"{k} {v:.3g} (|CPU| max "
+                    f"{float(want[k].abs().max()):.3g})"
+                    for k, v in errs.items()) + f" (tol {TOL_PRE_NET}); "
+        f"the card's float32 against float64 {f64:.3g}")
+    check(all(torch.isfinite(v).all() for v in want.values())
+          and max(errs.values()) <= TOL_PRE_NET,
+          f"Panoptic-DeepLab card vs CPU: {errs}")
+    heads = [got[k][0] for k in ("semantic", "center", "offset")]
+    sem_c, inst_c = postprocess(*heads)
+    sem_h, inst_h = postprocess(*[h.cpu() for h in heads])
+    check(torch.equal(sem_c.cpu(), sem_h) and torch.equal(inst_c.cpu(),
+                                                          inst_h),
+          "postprocess on the card differs from the CPU's")
+    log(f"  postprocess card vs CPU on the card's heads at "
+        f"{PRE_PARITY[0]}x{PRE_PARITY[1]}: both maps equal; "
+        f"{centers_of(heads[1])} centers, "
+        f"{len(torch.unique(inst_h[inst_h > 0]))} instances")
+    del cpu, got, want
+    release_memory()
+
+    # the full frame on the card
+    x = x_full[1:].to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), full_float32():
+        ms = time_ms(lambda: net(x), reps=10, warmup=2)
+        busy = kernel_split(lambda: net(x), {"busy": ""}, calls=3)["busy"]
+        with cudnn_search():
+            busy_bench = kernel_split(lambda: net(x), {"busy": ""},
+                                      calls=3)["busy"]
+        out = net(x)
+        heads = [out[k][0] for k in ("semantic", "center", "offset")]
+        post_ms = time_ms(lambda: postprocess(*heads), reps=5, warmup=1)
+        sem32 = out["semantic"].argmax(-1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            ms_tf32 = time_ms(lambda: net(x), reps=5, warmup=2)
+            sem_tf32 = net(x)["semantic"].argmax(-1)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+    flipped = float((sem_tf32 != sem32).float().mean())
+    if profile:
+        with torch.no_grad(), full_float32():
+            profile_window("Panoptic-DeepLab full frame", lambda: net(x), ms)
+    sem, inst = postprocess(*heads)
+    log(f"  full frame [1,{PRE_FULL[0]},{PRE_FULL[1]},3] on the card, float32 "
+        f"TF32 off: {ms:.2f} ms per frame around the call, {busy:.2f} ms of "
+        f"device time ({busy_bench:.2f} ms with torch.backends.cudnn."
+        f"benchmark); postprocess {post_ms:.2f} ms ({centers_of(heads[1])} "
+        f"centers above 0.1, {len(torch.unique(inst[inst > 0]))} instances); "
+        f"peak memory {peak:.2f} GiB; with TF32 on {ms_tf32:.2f} ms and "
+        f"{flipped:.3g} of the semantic pixels change class")
+    check(bool((sem >= 0).all() and (sem < 19).all()), "semantic ids")
+    del net, x, out, heads
+    release_memory()
+    return path
+
+
+def synthetic_video(n: int, seed: int):
+    """(n uint8 frames [H, W, 3] at PRE_FULL, the moving box's xywh per
+    frame): a textured PRE_BOX moving 6 px right and 2 px down per frame
+    over a smooth background."""
+    rng = np.random.RandomState(seed)
+    bg = (smooth_frames(1, *PRE_FULL, seed)[0] * 160 + 40).astype(np.uint8)
+    h, w = PRE_BOX
+    tex = rng.randint(120, 255, (h, w, 3)).astype(np.uint8)
+    frames, gt = [], []
+    for f in range(n):
+        img = bg.copy()
+        x = PRE_FULL[1] * 7 // 16 + 6 * f
+        y = PRE_FULL[0] * 3 // 8 + 2 * f
+        img[y:y + h, x:x + w] = tex
+        frames.append(img)
+        gt.append([float(x), float(y), float(w), float(h)])
+    return frames, gt
+
+
+def preprocess_siamrpn(dev, root: str, profile: bool) -> str:
+    """SiamRPN++: seeded weights through the bridge, features and heads card
+    vs CPU, one tracker card vs CPU over 9 frames of the full frame (one
+    ``track`` call split by torch.profiler with ``profile``), the OPE
+    benchmark with the card tracker; returns the npz path."""
+    from c2m_tpu_torch.eval.tracker_benchmark import evaluate_tracker
+    from c2m_tpu_torch.models.siamrpn import (SiamRPNpp, SiamRPNTracker,
+                                              TrackConfig, get_subwindow)
+    from c2m_tpu_torch.utils import convert
+    frames, gt = synthetic_video(9, SEED + 17)
+    c = TrackConfig()
+    pos = np.array([gt[0][0] + (gt[0][2] - 1) / 2,
+                    gt[0][1] + (gt[0][3] - 1) / 2])
+    s_z = np.sqrt((gt[0][2] + c.context_amount * sum(gt[0][2:]))
+                  * (gt[0][3] + c.context_amount * sum(gt[0][2:])))
+    avg = frames[0].mean(axis=(0, 1))
+    z = torch.from_numpy(get_subwindow(frames[0], pos, c.exemplar_size,
+                                       round(s_z), avg))[None]
+    xs = torch.from_numpy(get_subwindow(
+        frames[1], pos, c.instance_size,
+        round(s_z * c.instance_size / c.exemplar_size), avg))[None]
+    # the weights' seed was picked for the tracker's top-two pscore
+    # margins, checked and printed below, so that card and CPU picking the
+    # same anchors means something; its box stays near PRE_BOX's size over
+    # the 9 frames
+    net = seeded_net_(SiamRPNpp(), SEED + 18)
+    bn_scales_near_one_(net, SEED + 18)
+    damp_residuals_(net)
+    net = net.to(dev).eval()
+    with full_float32():
+        calibrate_bn_(Pair(net), (z.to(dev), xs.to(dev)))
+    path = os.path.join(root, "siamrpn.npz")
+    back = round_trip(net, convert.siamrpn_to_jax, convert.siamrpn_from_jax,
+                      path, "SiamRPN++")
+    cpu = SiamRPNpp()
+    cpu.load_state_dict(back)
+    cpu.eval()
+    with torch.no_grad(), full_float32():
+        zf, xf = net.features(z.to(dev)), net.features(xs.to(dev))
+        heads = net.heads(zf, xf)
+        got = list(zf) + list(xf) + list(heads)
+        f64 = float64_error(net, (z.to(dev), xs.to(dev)), heads)
+        zf, xf = cpu.features(z), cpu.features(xs)
+        want = list(zf) + list(xf) + list(cpu.heads(zf, xf))
+    errs = [float((g.cpu() - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    log(f"  SiamRPN++ (atrous ResNet-50), "
+        f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f}M seeded "
+        f"parameters, npz round trip bit for bit; card vs CPU, TF32 off: "
+        f"features 127 {max(errs[:3]):.3g}, features 255 {max(errs[3:6]):.3g},"
+        f" cls {errs[6]:.3g}, loc {errs[7]:.3g} of the largest CPU output "
+        f"(tol {TOL_PRE_NET}); the card's heads in float32 against float64 "
+        f"{f64:.3g}")
+    check(max(errs) <= TOL_PRE_NET, f"SiamRPN++ card vs CPU: {errs}")
+
+    # one tracker, card vs CPU, over the 9 frames
+    trackers = {"card": SiamRPNTracker(net), "cpu": SiamRPNTracker(cpu)}
+    boxes = {k: [] for k in trackers}
+    bests = {k: [] for k in trackers}
+    host_ms, margins = [], []
+    with full_float32():
+        for name, tr in trackers.items():
+            tr.init(frames[0], gt[0])
+            for f in range(1, 9):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = tr.track(frames[f])
+                if name == "card":
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+                else:
+                    top = np.sort(tr.pscore)[-2:]
+                    margins.append(float(top[1] - top[0]))
+                boxes[name].append(out["bbox"])
+                bests[name].append(tr.best)
+        probe = SiamRPNTracker(net)
+        probe.init(frames[0], gt[0])
+        busy = kernel_split(lambda: probe.track(frames[1]), {"busy": ""},
+                            calls=3)["busy"]
+        if profile:
+            profile_window("SiamRPN++ track()",
+                           lambda: probe.track(frames[1]),
+                           statistics.median(host_ms))
+        with cudnn_search():
+            busy_bench = kernel_split(lambda: probe.track(frames[1]),
+                                      {"busy": ""}, calls=3)["busy"]
+    d_box = float(np.abs(np.array(boxes["card"])
+                         - np.array(boxes["cpu"])).max())
+    log(f"  tracker on 9 frames of {PRE_FULL[1]}x{PRE_FULL[0]}, card vs CPU: "
+        f"anchors {bests['card']} / {bests['cpu']}, boxes max|d| "
+        f"{d_box:.3g} px (tol {TOL_BOX}), smallest top-two pscore margin "
+        f"{min(margins):.3g}; track() {statistics.median(host_ms):.2f} ms "
+        f"host time around the call (crop included), {busy:.2f} ms of device "
+        f"time ({busy_bench:.2f} ms with torch.backends.cudnn.benchmark)")
+    check(min(margins) > 1e-3, f"fixture fault: pscore margins {margins}")
+    check(bests["card"] == bests["cpu"] and d_box <= TOL_BOX,
+          f"tracker card vs CPU: anchors {bests}, boxes {d_box}")
+
+    with full_float32():
+        res = evaluate_tracker(SiamRPNTracker(net),
+                               [{"frames": frames, "gt": gt}])
+    log(f"  evaluate_tracker (OPE) on the 9-frame video with the card "
+        f"tracker: {res}")
+    check(all(np.isfinite(v) for v in res.values()), f"OPE {res}")
+    del net, cpu, trackers, probe
+    release_memory()
+    return path
+
+
+def paint_city(root: str) -> None:
+    """30 raw frames of PRE_FULL (road / sky gradient, a car moving right
+    16 px a frame) with their crafted trainId and instance maps, as
+    tests/test_preprocess_chain.py paints its scene; and the frame-0 label
+    ids for the Cityscapes evaluator."""
+    from PIL import Image
+    h, w = PRE_FULL
+    dirs = {d: os.path.join(root, d, PRE_CITY)
+            for d in ("raw", "gt_semantic", "gt_instance")}
+    for d in dirs.values():
+        os.makedirs(d)
+    base = np.zeros((h, w, 3), np.uint8)
+    base[:h // 2] = (70, 130, 180)
+    base[h // 2:] = (90, 90, 90)
+    for f in range(30):
+        img = base.copy()
+        x, y, bw, bh = pre_car_box(f)
+        img[y:y + bh, x:x + bw] = (220, 40, 40)
+        sem = np.zeros((h, w), np.uint8)
+        sem[:h // 2] = 10
+        sem[y:y + bh, x:x + bw] = 13
+        inst = np.zeros((h, w), np.uint16)
+        inst[y:y + bh, x:x + bw] = PRE_CAR_IID
+        stem = f"{PRE_CITY}_000000_{f:06d}"
+        Image.fromarray(img).save(os.path.join(
+            dirs["raw"], f"{stem}_leftImg8bit.png"), compress_level=1)
+        Image.fromarray(sem).save(os.path.join(
+            dirs["gt_semantic"], f"{stem}_ssmask.png"), compress_level=1)
+        Image.fromarray(inst).save(os.path.join(
+            dirs["gt_instance"], f"{stem}_gtFine_instanceIds.png"),
+            compress_level=1)
+        if f == 0:
+            ids = np.where(sem == 10, 23, np.where(sem == 13, 26, 7))
+            for sub, name in (("gt_eval", "gtFine_labelIds"),
+                              ("pred_eval", "pred")):
+                os.makedirs(os.path.join(root, sub, PRE_CITY))
+                Image.fromarray(ids.astype(np.uint8)).save(os.path.join(
+                    root, sub, PRE_CITY, f"{stem}_{name}.png"))
+            # gtFine instanceIds carry label ids: 26 * 1000 + 1 for the car
+            Image.fromarray(np.where(inst > 0, 26001, ids).astype(
+                np.uint16)).save(os.path.join(
+                    root, "gt_eval", PRE_CITY,
+                    f"{stem}_gtFine_instanceIds.png"))
+
+
+def run_cli(args, here: str, what: str, timeout: int = 600):
+    """A CLI as the subprocess a user starts; -> (stdout, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=here,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} failed: {proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def preprocess_chain(cfg, dev, root: str, weights: dict) -> dict:
+    """Raw frames -> segmentation -> trajectories -> 128x256 frames and maps
+    -> precomputed flows -> the port's training set -> one Trainer step, the
+    port's CLIs as subprocesses; then evaluate_cityscapes on the crafted
+    maps. Returns the kernel launches of precompute_flow's process."""
+    from PIL import Image
+    import yaml
+    from c2m_tpu_torch.data.dataset import get_training_set
+    from c2m_tpu_torch.data.flow_io import read_flow
+    from c2m_tpu_torch.train.trainer import Trainer
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    paint_city(root)
+    log(f"  painted a city of 30 raw {PRE_FULL[1]}x{PRE_FULL[0]} frames with "
+        f"its maps in {time.perf_counter() - t0:.1f} s")
+    def j(*parts):
+        return os.path.join(root, *parts)
+
+    out, wall = run_cli(["-m", TOOLS + "generate_segmentation",
+                         "--images-root", j("raw"), "--out-semantic",
+                         j("seg_semantic"), "--out-instance",
+                         j("seg_instance"), "--weights", weights["panoptic"],
+                         "--limit", "2"], here, "generate_segmentation")
+    sem_files = sorted(os.listdir(j("seg_semantic", PRE_CITY)))
+    inst_files = sorted(os.listdir(j("seg_instance", PRE_CITY)))
+    check(sem_files == [f"{PRE_CITY}_000000_{f:06d}_ssmask.png"
+                        for f in range(2)]
+          and inst_files == [f"{PRE_CITY}_000000_{f:06d}_gtFine_instanceIds"
+                             ".png" for f in range(2)],
+          f"generate_segmentation wrote {sem_files} / {inst_files}")
+    sem = np.array(Image.open(j("seg_semantic", PRE_CITY, sem_files[0])))
+    inst = np.array(Image.open(j("seg_instance", PRE_CITY, inst_files[0])))
+    check(sem.shape == inst.shape == PRE_FULL and sem.dtype == np.uint8
+          and sem.max() <= 18 and all(11 <= v // 1000 <= 18
+                                      for v in np.unique(inst[inst > 0])),
+          "generate_segmentation's file contract")
+    log(f"  generate_segmentation on 2 frames of {PRE_FULL[1]}x"
+        f"{PRE_FULL[0]}: {wall:.1f} s as a subprocess; uint8 trainIds up to "
+        f"{sem.max()}, {len(np.unique(inst[inst > 0]))} instances in frame 0")
+
+    out, wall = run_cli(["-m", TOOLS + "generate_trajectories",
+                         "--images-root", j("raw"), "--instance-root",
+                         j("gt_instance"), "--out", j("tracking"),
+                         "--weights", weights["siamrpn"], "--score-thresh",
+                         "0", "--cover-thresh", "0", "--limit", "1"], here,
+                        "generate_trajectories")
+    txt = j("tracking", PRE_CITY, f"{PRE_CITY}_000000_000000_{PRE_CAR_IID}.txt")
+    with open(txt) as f:
+        rows = f.read().splitlines()
+    want = [f"{float(x)},{float(y)},{float(w - 1)},{float(h - 1)},"
+            f"{PRE_CAR_IID}" for x, y, w, h in map(pre_car_box, range(9))]
+    check(rows == want, f"trajectory rows {rows}")
+    log(f"  generate_trajectories on one clip (1 object, 9 frames): "
+        f"{wall:.1f} s as a subprocess; 9 rows with the crafted motion")
+
+    h, w = cfg.train_params.input_size
+    t0 = time.perf_counter()
+    for src, dst, nearest in (("raw", "train_images", False),
+                              ("gt_semantic", "train_semantic", True),
+                              ("gt_instance", "train_instance", True)):
+        run_cli([os.path.join(here, "tools", "preprocess_images.py"),
+                 "--src", j(src), "--dst", j(dst), "--height", str(h),
+                 "--width", str(w)] + (["--nearest"] if nearest else []),
+                here, "preprocess_images.py")
+    run_cli([os.path.join(here, "tools", "generate_lists.py"),
+             "--tracking-root", j("tracking"), "--out",
+             j("cityscapes_train.txt")], here, "generate_lists.py")
+    log(f"  frames and maps to {w}x{h}, data list: "
+        f"{time.perf_counter() - t0:.1f} s (tools/preprocess_images.py, "
+        f"tools/generate_lists.py)")
+
+    cfg = copy.deepcopy(cfg)
+    dp = cfg.dataset_params
+    dp.root, dp.dataset = root, "cityscapes"
+    for split in ("train", "val"):
+        for field, value in (("images_path", "train_images"),
+                             ("data_list", "cityscapes_train.txt"),
+                             ("segmasks_path", "train_semantic"),
+                             ("instances_path", "train_instance"),
+                             ("tracking_path", "tracking"),
+                             ("bw_of_path", "bw_of"), ("bw_occ_path", "bw_occ"),
+                             ("fw_of_path", "fw_of"),
+                             ("fw_occ_path", "fw_occ")):
+            setattr(dp, f"{split}_{field}", value)
+    yml = j("chain.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+    t = cfg.train_params.num_frames
+    out, wall = run_cli(["-m", TOOLS + "precompute_flow", "--config",
+                         yml, "--limit", "1"], here, "precompute_flow")
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("kernel launches: "))
+    counts = json.loads(line[len("kernel launches: "):])
+    flows = [os.path.join(j(kind, PRE_CITY), f) for kind in ("bw_of", "fw_of")
+             for f in sorted(os.listdir(j(kind, PRE_CITY)))]
+    check(len(flows) == 2 * (t - 1), f"{len(flows)} flow files")
+    check(all(np.isfinite(read_flow(p)).all() and read_flow(p).shape
+              == (h, w, 2) for p in flows), "a flow file is not finite")
+    log(f"  precompute_flow at the journal config ({t} frames, {w}x{h}) on "
+        f"one clip: {wall:.1f} s as a subprocess; {len(flows)} .flow files, "
+        f"finite; launches in its process {counts}")
+    expect_launched(counts, {"correlation", "corresponding_map"},
+                    "precompute_flow")
+    check(counts["correlation"] == counts["corresponding_map"] == 2 * (t - 1),
+          f"precompute_flow launches {counts}, not 2(T-1) of K5 and K4")
+
+    cfg.train_params.batch_size = 1
+    cfg.train_params.workers = 0
+    train_set = get_training_set(cfg)
+    item = train_set[0]
+    check(len(train_set) == 1 and int(item["node_mask"].sum()) == 1
+          and int(item["inst_ids"][0]) == PRE_CAR_IID,
+          "the training set over the chain's output")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_set, job_dir=j("job"), device=dev)
+    trainer.fit(num_epochs=1, max_steps=1)
+    torch.cuda.synchronize()
+    metrics = {k: float(v) for k, v in trainer.history[-1]["metrics"].items()}
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    check(not bad, f"the Trainer step on the chain's clip: non-finite {bad}")
+    log(f"  get_training_set loads the clip (1 tracked node); one Trainer "
+        f"step on it in {time.perf_counter() - t0:.1f} s (Trainer built): "
+        f"total_gen {metrics['total_gen']:.4f}")
+    del trainer
+    release_memory()
+
+    res_path = j("eval.json")
+    out, wall = run_cli(["-m", TOOLS + "evaluate_cityscapes", "pixel",
+                         "--gt-dir", j("gt_eval"), "--pred-dir",
+                         j("pred_eval"), "--out", res_path], here,
+                        "evaluate_cityscapes")
+    with open(res_path) as f:
+        res = json.load(f)
+    present = {k: res["classScores"][k] for k in ("road", "sky", "car")}
+    log(f"  evaluate_cityscapes pixel on the crafted frame-0 maps against "
+        f"themselves: {wall:.1f} s; IoU {present}, iIoU car "
+        f"{res['classInstScores']['car']}")
+    check(all(v == 1.0 for v in present.values()), f"IoU {present}")
+    return counts
+
+
+def phase_preprocess(cfg, dev, smi: str, profile: bool = False) -> dict:
+    """Phase 16: the preprocessing chain on the card."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    log("[phase 16] the preprocessing chain: Panoptic-DeepLab segmentation, "
+        "SiamRPN++ tracking and its OPE benchmark, FlowNet2 flow precompute "
+        "(K5, K4) and the Cityscapes evaluator, through the port's CLIs")
+    root = tempfile.mkdtemp(prefix="c2m_pre_")
+    try:
+        weights = {"panoptic": preprocess_panoptic(dev, root, profile),
+                   "siamrpn": preprocess_siamrpn(dev, root, profile)}
+        counts = preprocess_chain(cfg, dev, root, weights)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(smi)
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    release_memory()
+    return counts
+
+
 def profile_window(name: str, fn, warm_ms: float) -> None:
     """torch.profiler over one warm call of fn: device time by operator and
     by kernel, launches and idle share, printed. The profiler slows the host, so the idle share is also
@@ -2604,6 +3185,7 @@ def main() -> int:
     counts.update(phase_variants(cfg, dev, profile))
     counts["nccl"] = phase_nccl(cfg, dev)
     counts["metric_eval"] = phase_metric_nets(cfg, dev, smi, eval_ms)
+    counts["preprocess"] = phase_preprocess(cfg, dev, smi, profile)
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")

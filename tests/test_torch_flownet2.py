@@ -137,11 +137,15 @@ def test_whole_stack_flow_and_confidence(nets, hw):
     assert float(conf.min()) >= 0.0 and float(conf.max()) <= 1.0
 
 
-def test_onthefly_flow_matches_the_jax_class(nets, tmp_path):
+def test_onthefly_flow_matches_the_jax_class(nets, tmp_path, monkeypatch):
     """Keys, shapes and the crossed naming (the confidence computed with the
     forward flow is ``target_bw_occ``), two input frames so that the input
-    stream is there too; both classes read the same npz."""
+    stream is there too; both classes read the same npz. The JAX class runs
+    a Flax init of FlowNet2 (~40 s on the CPU) and then replaces what it
+    made with the npz's parameters, so its init is stood in for here."""
     params, _ = nets
+    monkeypatch.setattr(jax_fn.FlowNet2, "init",
+                        lambda self, *args, **kwargs: {"params": params})
     path = str(tmp_path / "flownet2.npz")
     np.savez(path, params=np.asarray(params, dtype=object))
     video = _smooth_frames(np.random.RandomState(3), 4, 64, 64)[None] * 0.5 \

@@ -67,7 +67,17 @@ def test_the_walk_sees_the_port_and_catches_an_import(tmp_path):
             "c2m_tpu_torch/eval/i3d.py",
             "c2m_tpu_torch/eval/yolov3.py",
             "c2m_tpu_torch/eval/detection_metric.py",
-            "c2m_tpu_torch/utils/convert.py"} <= names
+            "c2m_tpu_torch/utils/convert.py",
+            "c2m_tpu_torch/models/panoptic_deeplab.py",
+            "c2m_tpu_torch/models/siamrpn.py",
+            "c2m_tpu_torch/native/__init__.py",
+            "c2m_tpu_torch/eval/tracker_benchmark.py",
+            "c2m_tpu_torch/eval/cityscapes_eval.py",
+            "c2m_tpu_torch/tools/__init__.py",
+            "c2m_tpu_torch/tools/generate_segmentation.py",
+            "c2m_tpu_torch/tools/generate_trajectories.py",
+            "c2m_tpu_torch/tools/precompute_flow.py",
+            "c2m_tpu_torch/tools/evaluate_cityscapes.py"} <= names
     probe = tmp_path / "probe.py"
     probe.write_text('"""from c2m_tpu import x (a docstring)"""\n'
                      "def f():\n    from c2m_tpu.config import Config\n"
@@ -109,6 +119,8 @@ def _entry_points():
     from c2m_tpu_torch.train.flow_onthefly import OnTheFlyFlow
     from c2m_tpu_torch.train.state import create_train_state
     from c2m_tpu_torch.train.trainer import Trainer
+    from c2m_tpu_torch.tools import (generate_segmentation,
+                                     generate_trajectories, precompute_flow)
     cfg = shrink_model(tiny_config())
     return {
         "make_batch": lambda: make_batch(cfg, seed=0),
@@ -128,6 +140,14 @@ def _entry_points():
             ["--image-folder", "/nonexistent", "--weights",
              "/nonexistent.npz"]),
         "make_yolo_detector": lambda: make_yolo_detector("/nonexistent.npz"),
+        "generate_segmentation.main": lambda: generate_segmentation.main(
+            ["--images-root", "/nonexistent", "--out-semantic", "/nonexistent",
+             "--out-instance", "/nonexistent"]),
+        "generate_trajectories.main": lambda: generate_trajectories.main(
+            ["--images-root", "/nonexistent", "--instance-root",
+             "/nonexistent", "--out", "/nonexistent"]),
+        "precompute_flow.main": lambda: precompute_flow.main(
+            ["--config", "/nonexistent.yaml"]),
     }
 
 
@@ -137,7 +157,10 @@ def _entry_points():
                                   "SyntheticDataset", "Trainer",
                                   "train_torch.main", "eval_torch.main",
                                   "yolo_detect_torch.main",
-                                  "make_yolo_detector"])
+                                  "make_yolo_detector",
+                                  "generate_segmentation.main",
+                                  "generate_trajectories.main",
+                                  "precompute_flow.main"])
 def test_entry_point_defaults_to_the_card(name):
     """With no ``device`` an entry point asks for the card. This host has
     none, so it must raise an error that names CUDA, before anything else

@@ -79,7 +79,13 @@ def _jax_step(cfg, model):
         new_state = state.apply_gradients(grads).replace(
             batch_stats=mutated["batch_stats"], spectral=mutated["spectral"])
         return new_state, metrics, grads, mu, click
-    return jax.jit(step)
+    # XLA's backend optimizations off: this reference is compiled once per
+    # test module and run once, and on the CPU its compile is the larger
+    # part of the module's time; its outputs move by float32 rounding only,
+    # inside the gates. The inference references gain nothing from it and
+    # keep the default.
+    return jax.jit(step,
+                   compiler_options={"xla_backend_optimization_level": 0})
 
 
 def _jax_draws(model, variables, step_rng, mu_shape, num_real, n_max):
