@@ -39,6 +39,7 @@ from PIL import Image
 
 from c2m_tpu_torch.device import full_float32, resolve_device
 from c2m_tpu_torch.models.panoptic_deeplab import PanopticDeepLab, postprocess
+from c2m_tpu_torch.tools import write_instance_png
 from c2m_tpu_torch.utils.convert import panoptic_from_jax, read_variables_npz
 
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -87,18 +88,6 @@ def segment(model: PanopticDeepLab, path: str, size=None):
         sem, inst = postprocess(out["semantic"][0], out["center"][0],
                                 out["offset"][0])
     return sem.cpu().numpy(), inst.cpu().numpy()
-
-
-def write_instance_png(path: str, inst: np.ndarray) -> None:
-    """The instance map as a 16-bit grayscale PNG, the bytes the JAX tool's
-    ``Image.fromarray(inst, mode="I")`` writes (Pillow stores an ``I``
-    image in PNG as 16 bits), without that mode: Pillow 12 warns that
-    both the ``mode`` argument and saving ``I`` images as PNG go in Pillow
-    13. Ids are at most 18 * 1000 + 200."""
-    if inst.size and (inst.min() < 0 or inst.max() > np.iinfo(np.uint16).max):
-        raise ValueError(f"instance ids outside 16 bits: {inst.min()}.."
-                         f"{inst.max()}")
-    Image.fromarray(inst.astype(np.uint16)).save(path)
 
 
 def main(argv=None) -> int:

@@ -4,9 +4,10 @@ the train step at the journal config (128x256) and at the long-horizon
 config (512x1024), FlowNet2 on-the-fly flow feeding a train step, the
 program around the step (trainer, checkpoint and resume, evaluator,
 serving artifact) at the journal config, the KITTI and SPADE generator
-variants, the trainer over a NCCL process group, and the evaluation's
-metric nets (InceptionV3, I3D, YOLOv3) with the evaluator and entry points
-that run them.
+variants, the trainer over a NCCL process group, the evaluation's metric
+nets (InceptionV3, I3D, YOLOv3) with the evaluator and entry points that
+run them, the preprocessing chain, and the tools: reference-checkpoint
+conversion, artifact export and the synthetic dataset on disk.
 
     python3 chip_smoke.py [--profile]
 
@@ -15,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
   2. build the hand-written kernels from c2m_tpu_torch/csrc (nvcc, ctypes);
   3. each kernel against its plain PyTorch version on the card at the
      shapes the paths give it (journal serving: B=12, T=5, N=16, 128x256;
-     journal train: 15 folded frames; long horizon: B=4 and B=1, T=10, N=24,
+     journal train: 15 folded frames; the dataset tools' one clip a call:
+     K2 at B=1, K4 at 5 frames and K5 and K4 at one frame pair; long horizon: B=4 and B=1, T=10, N=24,
      512x1024, with every decoder skip of K1 at 10 and 40 folded frames;
      FlowNetC's map [30,16,32,256] and the 30 frame pairs of K4's
      confidence), forward and, for K1, backward
@@ -144,6 +146,22 @@ Phases (any failure raises and the script exits non-zero):
      K4, 2(T-1) launches each, counted in its process: the kernels line's
      launches_preprocess), the port's get_training_set and one Trainer step
      on the clip, evaluate_cityscapes on the crafted maps (IoU 1.0).
+     Both nets also run undamped (ROADMAP C4): card vs CPU within
+     TOL_F64_MULTIPLE x the larger of the two sides' float32 errors, each
+     against a float64 copy of the net on its own side (Panoptic-DeepLab at
+     [1,512,1024,3], SiamRPN++'s heads and four trackers over the 9
+     frames), the multiple printed;
+ 17. the tools at the journal config's full width: a seeded train model
+     written as a reference checkpoint (``latest_c2m_model.pth.tar``
+     layout, tests/torch_reference_layout.py), ``convert_c2m`` and
+     ``export_serving --batch-sizes 12`` as subprocesses, the job dir
+     equal to the seeded model tensor for tensor, one request served from
+     the artifact on the card (K1, K2, K4 counted) equal bit for bit to the
+     seeded model served directly; ``make_synthetic_dataset`` on the card
+     (one K2 and two K4 launches a clip, counted in its process), its tree
+     held to the same tool's run on the CPU (other files byte for byte,
+     flows and occlusions within phase 10's gates), then eval_torch.py on the converted job dir and train_torch.py for 2 steps,
+     both reading that tree from disk; upfirdn2d and bias_act card vs CPU.
 With --profile, torch.profiler splits one warm train step and one warm
 request of each config, the full-frame Panoptic-DeepLab and one track()
 call by operator and by kernel (printed).
@@ -252,6 +270,14 @@ TOL_PRE_NET = 1e-4
 # (~1e-5 of outputs of order 5) scaled by the anchors (64-184 px) over
 # scale_z, carried from frame to frame
 TOL_BOX = 1e-3
+# the undamped preprocessing nets and tracker (phase 16, ROADMAP C4), card vs
+# CPU, each side in float32 against its own float64 forward: if the card
+# computes the CPU's function, the triangle inequality bounds card - CPU by
+# the two sides' float32 errors together, so by 2x the larger; a card that
+# computed another function would part from the CPU in float64 as well and
+# exceed it. 3x leaves room for the two float64 results' own rounding and
+# for each error being taken relative to its own side's outputs
+TOL_F64_MULTIPLE = 3.0
 
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -901,6 +927,12 @@ def phase_kernels(dev):
     rows["correlation"]["precompute"] = correlation_case((1, 16, 32, 256),
                                                          "precompute")
     rows["corresponding_map"]["precompute"] = splat_case(1, "precompute")
+    # K2 and K4 at make_synthetic_dataset's one clip a call (journal config:
+    # 16 objects, 5 predicted frames)
+    rows["warp_masks_winner"]["synthetic_dataset"] = maskwarp_case(
+        1, "synthetic_dataset")
+    rows["corresponding_map"]["synthetic_dataset"] = splat_case(
+        5, "synthetic_dataset")
     # K1 and K4 at the long-horizon shapes: 10 folded frames per clip in
     # the train step, 40 in a bucket-4 request; the four decoder skips and
     # the bottleneck are the five bf16 launches of a request or a step
@@ -2621,11 +2653,8 @@ def float64_error(net: torch.nn.Module, args, got) -> float:
     ref = copy.deepcopy(net).double()
     with torch.no_grad():
         want = ref(*[a.double() for a in args])
-    want = list(want.values()) if isinstance(want, dict) else list(want)
-    got = list(got.values()) if isinstance(got, dict) else list(got)
     del ref
-    return max(float((g.double() - w).abs().max() / w.abs().max())
-               for g, w in zip(got, want))
+    return rel_max(got, want)
 
 
 @contextlib.contextmanager
@@ -2639,6 +2668,50 @@ def cudnn_search():
         yield
     finally:
         torch.backends.cudnn.benchmark = before
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want|, the worst over the outputs (a dict
+    or a sequence of tensors, on any devices), in float64."""
+    got = list(got.values()) if isinstance(got, dict) else list(got)
+    want = list(want.values()) if isinstance(want, dict) else list(want)
+    return max(float((g.cpu().double() - w.cpu().double()).abs().max()
+                     / w.cpu().double().abs().max())
+               for g, w in zip(got, want))
+
+
+def f64_sides(name: str, card: torch.nn.Module, cpu: torch.nn.Module, args,
+              dev) -> None:
+    """One net card (float32, TF32 off) vs CPU within TOL_F64_MULTIPLE x
+    the larger of the two sides' float32 errors, each against a float64
+    copy of the net on its own side (ROADMAP C4)."""
+    with torch.no_grad(), full_float32():
+        c32 = card(*[a.to(dev) for a in args])
+        p32 = cpu(*args)
+        c64 = copy.deepcopy(card).double()(*[a.to(dev).double() for a in args])
+        p64 = copy.deepcopy(cpu).double()(*[a.double() for a in args])
+    d, e_card, e_cpu = rel_max(c32, p32), rel_max(c32, c64), rel_max(p32, p64)
+    worst = max(e_card, e_cpu)
+    log(f"  {name}, card vs CPU, TF32 off: max|d| / max|CPU| {d:.3g}; "
+        f"float32 against float64 on the card {e_card:.3g}, on the CPU "
+        f"{e_cpu:.3g}; card vs CPU in float64 {rel_max(c64, p64):.3g}; the "
+        f"difference is {d / worst:.3g}x the larger float32 error (gate "
+        f"{TOL_F64_MULTIPLE}x)")
+    check(d <= TOL_F64_MULTIPLE * worst,
+          f"{name}: card vs CPU {d} > {TOL_F64_MULTIPLE} x {worst}")
+
+
+def float64_tracker(net: torch.nn.Module):
+    """A SiamRPNTracker over a float64 copy of SiamRPN++: its float32 crops
+    go in as float64, and its box arithmetic stays in float64."""
+    from c2m_tpu_torch.models.siamrpn import SiamRPNTracker
+
+    class Float64Tracker(SiamRPNTracker):
+        @torch.no_grad()
+        def _features(self, patch):
+            return self.model.features(torch.from_numpy(
+                patch.astype(np.float64))[None].to(self.device))
+    return Float64Tracker(copy.deepcopy(net).double())
 
 
 def centers_of(center: torch.Tensor, threshold: float = 0.1) -> int:
@@ -2706,6 +2779,20 @@ def preprocess_panoptic(dev, root: str, profile: bool) -> str:
         f"{centers_of(heads[1])} centers, "
         f"{len(torch.unique(inst_h[inst_h > 0]))} instances")
     del cpu, got, want
+    release_memory()
+
+    # C4: the same net undamped, held by each side's float64 error
+    undamped = seeded_net_(PanopticDeepLab(), SEED + 16)
+    bn_scales_near_one_(undamped, SEED + 16)
+    undamped = undamped.to(dev).eval()
+    with full_float32():
+        calibrate_bn_(undamped, x_full[:1].to(dev))
+    cpu = PanopticDeepLab()
+    cpu.load_state_dict({k: v.cpu() for k, v in undamped.state_dict().items()})
+    f64_sides("Panoptic-DeepLab undamped at "
+              f"[1,{PRE_PARITY[0]},{PRE_PARITY[1]},3]", undamped, cpu.eval(),
+              (x,), dev)
+    del undamped, cpu
     release_memory()
 
     # the full frame on the card
@@ -2866,6 +2953,45 @@ def preprocess_siamrpn(dev, root: str, profile: bool) -> str:
     check(min(margins) > 1e-3, f"fixture fault: pscore margins {margins}")
     check(bests["card"] == bests["cpu"] and d_box <= TOL_BOX,
           f"tracker card vs CPU: anchors {bests}, boxes {d_box}")
+
+    # C4: the same net undamped, held by each side's float64 error, the
+    # heads on the first pair and four trackers (card / CPU, float32 /
+    # float64) over the 9 frames
+    undamped = seeded_net_(SiamRPNpp(), SEED + 18)
+    bn_scales_near_one_(undamped, SEED + 18)
+    undamped = undamped.to(dev).eval()
+    with full_float32():
+        calibrate_bn_(Pair(undamped), (z.to(dev), xs.to(dev)))
+    cpu_u = SiamRPNpp()
+    cpu_u.load_state_dict({k: v.cpu() for k, v in
+                           undamped.state_dict().items()})
+    cpu_u.eval()
+    f64_sides("SiamRPN++ heads undamped", undamped, cpu_u, (z, xs), dev)
+    runs = {"card32": SiamRPNTracker(undamped), "cpu32": SiamRPNTracker(cpu_u),
+            "card64": float64_tracker(undamped),
+            "cpu64": float64_tracker(cpu_u)}
+    ub = {k: [] for k in runs}
+    with full_float32():
+        for name, tr in runs.items():
+            tr.init(frames[0], gt[0])
+            for f in range(1, 9):
+                ub[name].append(tr.track(frames[f])["bbox"])
+    ub = {k: np.array(v) for k, v in ub.items()}
+    d_u = float(np.abs(ub["card32"] - ub["cpu32"]).max())
+    e_card = float(np.abs(ub["card32"] - ub["card64"]).max())
+    e_cpu = float(np.abs(ub["cpu32"] - ub["cpu64"]).max())
+    worst = max(e_card, e_cpu)
+    log(f"  undamped tracker over the 9 frames, card vs CPU: boxes max|d| "
+        f"{d_u:.3g} px; float32 against float64 on the card {e_card:.3g} px, "
+        f"on the CPU {e_cpu:.3g} px; card vs CPU in float64 "
+        f"{float(np.abs(ub['card64'] - ub['cpu64']).max()):.3g} px; the "
+        f"difference is {d_u / max(worst, 1e-300):.3g}x the larger float32 "
+        f"error (gate {TOL_F64_MULTIPLE}x)")
+    check(d_u <= TOL_F64_MULTIPLE * worst,
+          f"undamped tracker card vs CPU {d_u} px > {TOL_F64_MULTIPLE} x "
+          f"{worst}")
+    del undamped, cpu_u, runs
+    release_memory()
 
     with full_float32():
         res = evaluate_tracker(SiamRPNTracker(net),
@@ -3095,6 +3221,273 @@ def phase_preprocess(cfg, dev, smi: str, profile: bool = False) -> dict:
     return counts
 
 
+# -- phase 17: reference checkpoint -> job dir -> artifact; the dataset tools -
+
+# upfirdn2d / bias_act card vs CPU: the same float32 products summed in
+# another order (at most 4x4 taps, then one activation)
+TOL_UPFIRDN = 1e-5
+
+
+def tool_args(cfg) -> dict:
+    """The journal config's YAML path and the dataset tree's size."""
+    from c2m_tpu_torch.config import JOURNAL
+    tp = cfg.train_params
+    return {"config": JOURNAL, "h": tp.input_size[0], "w": tp.input_size[1],
+            "frames": tp.num_frames, "objects": cfg.dataset_params.max_objects}
+
+
+def reference_checkpoint(cfg, path: str) -> dict:
+    """A seeded C2MTrainModel (phase 4's generator weights, GATv2's lin_r
+    biases zero as the reference has none) written as a reference
+    ``.pth.tar``; -> its state_dict."""
+    import importlib.util
+    from c2m_tpu_torch.train.state import create_train_state
+    # by its path: a ``tests`` package installed on the machine would
+    # shadow the repository's tests directory, which has no __init__.py
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_reference_layout",
+        os.path.join(here, "tests", "torch_reference_layout.py"))
+    layout = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(layout)
+    model = create_train_state(cfg, seed=SEED + 17, device="cpu").model
+    model.c2m.load_state_dict(build_model(cfg).state_dict())
+    sd = model.state_dict()
+    for k, v in sd.items():
+        if ".lin_r." in k and k.endswith(".bias"):
+            v.zero_()
+    layout.save_reference(path, sd, cfg)
+    return sd
+
+
+def tools_checkpoint(cfg, dev, root: str, here: str) -> tuple:
+    """convert_c2m and export_serving as subprocesses; one request served
+    from the artifact against the seeded model served directly, bit for
+    bit. -> (the converted job dir, the request's launch counts)."""
+    from c2m_tpu_torch.models.c2m import DTYPES, C2MGenerator
+    from c2m_tpu_torch.serving import ServingModel
+    from c2m_tpu_torch.utils.checkpoint import load_payload
+    a = tool_args(cfg)
+    ckpt = os.path.join(root, "latest_c2m_model.pth.tar")
+    t0 = time.perf_counter()
+    sd = reference_checkpoint(cfg, ckpt)
+    n_values = sum(v.numel() for v in sd.values())
+    log(f"  a seeded train model ({n_values / 1e6:.1f}M values) written as a "
+        f"reference checkpoint "
+        f"({os.path.getsize(ckpt) / 2 ** 20:.1f} MiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    job = os.path.join(root, "job")
+    _, wall = run_cli(["-m", TOOLS + "convert_c2m", "--checkpoint", ckpt,
+                       "--config", a["config"], "--out", job], here,
+                      "convert_c2m")
+    saved = load_payload(job)
+    same = set(saved["model"]) == set(sd) and all(
+        torch.equal(saved["model"][k], v) for k, v in sd.items())
+    log(f"  convert_c2m as a subprocess in {wall:.1f} s: job dir at step "
+        f"{saved['step']}, epoch {saved['epoch']}; every tensor equal to the "
+        f"seeded model's: {same}")
+    check(same and saved["step"] == 0, "convert_c2m's job dir differs from "
+          "the seeded model")
+    del saved
+    art = os.path.join(root, "artifact")
+    _, wall = run_cli(["-m", TOOLS + "export_serving", "--config",
+                       a["config"], "--job-dir", job, "--out", art,
+                       "--batch-sizes", str(BUCKET)], here, "export_serving")
+    log(f"  export_serving --batch-sizes {BUCKET} as a subprocess in "
+        f"{wall:.1f} s: {sorted(os.listdir(art))}")
+
+    (req,) = requests(cfg, dev, sizes=(BUCKET,))
+    server = ServingModel.from_artifact(art, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = server(*req)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    expect_launched(counts, FORWARD_128, "the exported artifact's request")
+    direct = C2MGenerator(cfg)
+    direct.load_state_dict({k[len("c2m."):]: v for k, v in sd.items()
+                            if k.startswith("c2m.")})
+    direct = ServingModel(direct.to(dev).use_compute_dtype(
+        DTYPES[cfg.train_params.dtype]), (BUCKET,))
+    want = direct(*req)
+    gen = got["generated"]
+    equal = np.array_equal(gen, want["generated"])
+    log(f"  the artifact served on the card: batch {BUCKET}, generated "
+        f"{list(gen.shape)} in [{gen.min():.3f}, {gen.max():.3f}], equal bit "
+        f"for bit to the seeded model served directly: {equal} (max|d| "
+        f"{float(np.abs(gen - want['generated']).max()):.3g}); launches "
+        f"{counts}")
+    check(equal and bool(np.isfinite(gen).all()),
+          "the converted and exported model serves other frames")
+    del server, direct
+    release_memory()
+    return job, counts
+
+
+def synthetic_card_vs_cpu(card: str, cpu: str, a: dict, clips: int) -> None:
+    """make_synthetic_dataset again, in this process with ``--device cpu``
+    (the plain versions of K2 and K4), into ``cpu``: the same files, byte
+    for byte but for the rasterized ones, which are held to phase 10's card
+    vs CPU gates (flow support and occlusions flipping on at most TOL_FLIP
+    and TOL_OCC of the pixels, flows within 1e-3 px where both have one)."""
+    from PIL import Image
+    from c2m_tpu_torch.data.flow_io import read_flow
+    from c2m_tpu_torch.tools import make_synthetic_dataset as tool
+    t0 = time.perf_counter()
+    check(tool.main(["--root", cpu, "--clips", str(clips), "--height",
+                     str(a["h"]), "--width", str(a["w"]), "--frames",
+                     str(a["frames"]), "--max-objects", str(a["objects"]),
+                     "--device", "cpu"]) == 0, "make_synthetic_dataset on CPU")
+    wall = time.perf_counter() - t0
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, files in os.walk(root) for f in files)
+    files = tree(card)
+    check(files == tree(cpu), "make_synthetic_dataset: card and CPU trees "
+          "hold other files")
+    flows = occs = 0
+    support = flow = occ = 0.0
+    for f in files:
+        x, y = os.path.join(card, f), os.path.join(cpu, f)
+        if f.endswith(".flow"):
+            got, want = read_flow(x), read_flow(y)
+            same = (got != 0).any(-1) == (want != 0).any(-1)
+            support = max(support, 1.0 - float(same.mean()))
+            flow = max(flow, float(np.abs(got - want).max(-1)[same].max(
+                initial=0.0)))
+            flows += 1
+        elif "occlusion" in f:
+            got, want = np.array(Image.open(x)), np.array(Image.open(y))
+            check(got.shape == want.shape, f"occlusion {f}: {got.shape}")
+            occ = max(occ, float(np.mean(got != want)))
+            occs += 1
+        else:
+            with open(x, "rb") as p, open(y, "rb") as q:
+                check(p.read() == q.read(), f"make_synthetic_dataset: {f} "
+                      f"differs card vs CPU")
+    log(f"  make_synthetic_dataset --device cpu in this process in {wall:.1f} "
+        f"s: {len(files)} files, the same names; {len(files) - flows - occs} "
+        f"byte-equal to the card's; over {flows} .flow files support "
+        f"mismatch {support:.3g} (tol {TOL_FLIP}), flow max|diff| "
+        f"{flow:.3g} px where both have one (tol 1e-3); over {occs} occlusion"
+        f" PNGs mismatch {occ:.3g} (tol {TOL_OCC})")
+    check(flows > 0 and occs > 0, "make_synthetic_dataset wrote no rasters")
+    check(support <= TOL_FLIP and flow <= 1e-3 and occ <= TOL_OCC,
+          "make_synthetic_dataset card vs CPU over the raster gates")
+
+
+def tools_dataset(cfg, dev, root: str, here: str, job: str) -> dict:
+    """make_synthetic_dataset as a subprocess on the card (K2 and K4
+    counted in its process), then eval_torch.py on the converted job dir and
+    train_torch.py for 2 steps, both reading that tree from disk. -> the
+    dataset tool's launch counts."""
+    import yaml
+    from c2m_tpu_torch.utils.checkpoint import latest_step
+    a = tool_args(cfg)
+    data = os.path.join(root, "data")
+    clips = 2 * cfg.train_params.batch_size       # two train steps
+    out, wall = run_cli(["-m", TOOLS + "make_synthetic_dataset", "--root",
+                         data, "--clips", str(clips), "--height", str(a["h"]),
+                         "--width", str(a["w"]), "--frames", str(a["frames"]),
+                         "--max-objects", str(a["objects"])], here,
+                        "make_synthetic_dataset")
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("kernel launches: "))
+    counts = json.loads(line[len("kernel launches: "):])
+    n = sum(len(files) for _, _, files in os.walk(data))
+    log(f"  make_synthetic_dataset: {clips} clips a split at {a['w']}x"
+        f"{a['h']}, {a['frames']} frames, {a['objects']} objects, as a "
+        f"subprocess in {wall:.1f} s: {n} files; launches in its process "
+        f"{counts}")
+    expect_launched(counts, {"warp_masks_winner", "corresponding_map"},
+                    "make_synthetic_dataset")
+    check(counts["warp_masks_winner"] == 2 * clips
+          and counts["corresponding_map"] == 4 * clips,
+          f"make_synthetic_dataset launches {counts}: not one K2 and two K4 "
+          f"a clip")
+    synthetic_card_vs_cpu(data, os.path.join(root, "data_cpu"), a, clips)
+
+    dcfg = copy.deepcopy(cfg)
+    dcfg.dataset_params.root = data
+    dcfg.checkpoint_params.save_epoch_freq = 1
+    yml = os.path.join(root, "synthetic_tree.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(dcfg.to_dict(), f)
+    out, wall = run_cli([os.path.join(here, "eval_torch.py"), "--config", yml,
+                         "--job-dir", job, "--max-batches", "1"], here,
+                        "eval_torch.py")
+    with open(os.path.join(job, "eval", "results.txt")) as f:
+        results = dict(ln.split(": ") for ln in f.read().splitlines())
+    log(f"  eval_torch.py on the converted job dir over the tree's val split "
+        f"as a subprocess in {wall:.1f} s: results.txt {results}")
+    check("batch 0 done" in out and "trajectory_mse_theta" in results,
+          f"eval_torch.py on the converted job dir: {out[-2000:]}")
+    tjob = os.path.join(root, "train_job")
+    out, wall = run_cli([os.path.join(here, "train_torch.py"), "--config",
+                         yml, "--job-dir", tjob, "--num-epochs", "1",
+                         "--max-steps", "2"], here, "train_torch.py")
+    with open(os.path.join(tjob, "iter.txt")) as f:
+        it = f.read()
+    log(f"  train_torch.py --max-steps 2 on the tree as a subprocess in "
+        f"{wall:.1f} s: saved step {latest_step(tjob)}, iter.txt {it}")
+    check(latest_step(tjob) == 2 and it == "1,2",
+          f"train_torch.py on the tree: step {latest_step(tjob)}, {it}")
+    return counts
+
+
+def tools_upfirdn(dev) -> None:
+    """upfirdn2d (2x up with a 4x4 filter, 2x down) and bias_act (every
+    activation) at a StyleGAN2 layer's size, card vs CPU."""
+    from c2m_tpu_torch.ops.upfirdn import _ACTS, bias_act, upfirdn2d
+    g = torch.Generator().manual_seed(SEED + 17)
+    x = torch.randn(4, 128, 128, 64, generator=g)
+    k = torch.rand(4, 4, generator=g)
+    k /= k.sum()
+    errs = {}
+    with full_float32():
+        for name, args in (("up", dict(up=2, pad=(2, 1))),
+                           ("down", dict(down=2, pad=(1, 1)))):
+            want = upfirdn2d(x, k, **args)
+            got = upfirdn2d(x.to(dev), k.to(dev), **args)
+            errs[f"upfirdn2d {name} {list(got.shape)}"] = float(
+                (got.cpu() - want).abs().max())
+        b = torch.randn(64, generator=g)
+        for act in sorted(_ACTS):
+            got = bias_act(x.to(dev), b.to(dev), act, clamp=256.0)
+            errs[f"bias_act {act}"] = float(
+                (got.cpu() - bias_act(x, b, act, clamp=256.0)).abs().max())
+    log("  upfirdn2d / bias_act on [4,128,128,64], card vs CPU max|d|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {TOL_UPFIRDN})")
+    check(max(errs.values()) <= TOL_UPFIRDN, f"upfirdn card vs CPU: {errs}")
+
+
+def phase_tools(cfg, dev, smi: str) -> dict:
+    """Phase 17: a reference checkpoint through convert_c2m and
+    export_serving to a served request, the dataset tool feeding eval and
+    train, and upfirdn; -> the launch counts of the artifact's request and
+    of make_synthetic_dataset's process."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    log("[phase 17] the tools: a reference checkpoint -> convert_c2m -> "
+        "export_serving -> a served request; make_synthetic_dataset (K2, K4) "
+        "-> eval_torch.py and train_torch.py from disk; upfirdn")
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="c2m_tools_")
+    try:
+        job, served = tools_checkpoint(cfg, dev, root, here)
+        made = tools_dataset(cfg, dev, root, here, job)
+        tools_upfirdn(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(smi)
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    release_memory()
+    return {"tools_serving": served, "tools_dataset": made}
+
+
 def profile_window(name: str, fn, warm_ms: float) -> None:
     """torch.profiler over one warm call of fn: device time by operator and
     by kernel, launches and idle share, printed. The profiler slows the host, so the idle share is also
@@ -3186,6 +3579,7 @@ def main() -> int:
     counts["nccl"] = phase_nccl(cfg, dev)
     counts["metric_eval"] = phase_metric_nets(cfg, dev, smi, eval_ms)
     counts["preprocess"] = phase_preprocess(cfg, dev, smi, profile)
+    counts.update(phase_tools(cfg, dev, smi))
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")

@@ -5,11 +5,15 @@ indices shift alike, ``.flow`` files cross between the packages, the label
 tables are equal, and the loader gives the same batches in the same order
 (epochs 1-3, with and without shuffle, host 0 and 1 of 2, ``drop_last``
 both ways). The port's loader also starts an epoch at a given batch
-without loading the ones before it (the trainer's resume).
+without loading the ones before it (the trainer's resume). The port's
+``tools/make_synthetic_dataset`` writes the JAX tool's trees: the same
+files, byte for byte but for the rasterized flows and occlusions, which
+stay within the rasterizer's gates.
 """
 
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -59,6 +63,80 @@ def roots(tmp_path_factory):
         out[style] = str(tmp_path_factory.mktemp(f"c2m_{style}"))
         make_dataset(out[style], style)
     return out
+
+
+@pytest.fixture(scope="module")
+def port_roots(tmp_path_factory):
+    """The port's ``make_synthetic_dataset`` with the arguments of
+    :func:`make_dataset`, on the CPU, with Pillow's DeprecationWarning
+    raised as an error (it writes no ``I`` image)."""
+    from c2m_tpu_torch.tools import make_synthetic_dataset as tool
+    out = {}
+    for style in STYLES:
+        out[style] = str(tmp_path_factory.mktemp(f"port_{style}"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", DeprecationWarning)
+            assert tool.main(["--root", out[style], "--clips", "3",
+                              "--height", "64", "--width", "128",
+                              "--max-objects", "4", "--style", style,
+                              "--device", "cpu"]) == 0
+    return out
+
+
+def _tree(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _is_raster(path):
+    return path.endswith(".flow") or "occlusion" in path or "_occ" in path
+
+
+@pytest.mark.parametrize("style", STYLES)
+def test_port_dataset_tool_writes_the_same_files(roots, port_roots, style):
+    """Frames, semantic and instance maps, data lists and trajectory txts
+    byte for byte; the flows and occlusions are checked below."""
+    files = _tree(roots[style])
+    assert files == _tree(port_roots[style])
+    assert any(f.endswith(".flow") for f in files)
+    assert any("instance" in f.lower() for f in files)
+    for f in files:
+        if not _is_raster(f):
+            with open(os.path.join(roots[style], f), "rb") as a, \
+                    open(os.path.join(port_roots[style], f), "rb") as b:
+                assert a.read() == b.read(), f
+
+
+@pytest.mark.parametrize("style", STYLES)
+def test_port_dataset_tool_flows_within_raster_gates(roots, port_roots,
+                                                     style):
+    """The JAX tool rasterizes with JAX, the port with its own rasterizer:
+    the gates of tests/test_torch_raster.py, flows 1e-5 x the flow scale
+    where both give a flow, their support and the occlusions differing on
+    at most 1e-4 of the pixels."""
+    from PIL import Image
+    scale = 1e-5 * (128 - 1) / 2
+    rasters = [f for f in _tree(roots[style]) if _is_raster(f)]
+    assert any(f.endswith(".flow") for f in rasters)
+    for f in rasters:
+        a, b = (os.path.join(r[style], f) for r in (roots, port_roots))
+        if f.endswith(".flow"):
+            want, got = jflow.read_flow(a), pflow.read_flow(b)
+            same = (got != 0).any(-1) == (want != 0).any(-1)
+            assert 1.0 - same.mean() <= 1e-4, f
+            np.testing.assert_allclose(got[same], want[same], atol=scale,
+                                       rtol=0, err_msg=f)
+        else:
+            want, got = np.array(Image.open(a)), np.array(Image.open(b))
+            assert got.shape == want.shape and np.mean(got != want) <= 1e-4
+
+
+def test_port_tools_refuse_instance_ids_outside_16_bits(tmp_path):
+    from c2m_tpu_torch.tools import write_instance_png
+    for bad in (70000, -1):
+        with pytest.raises(ValueError, match="16 bits"):
+            write_instance_png(str(tmp_path / "x.png"),
+                               np.array([[bad]], np.int32))
 
 
 def jax_cfg(root, style, use_fw_of=False):

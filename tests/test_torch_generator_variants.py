@@ -34,7 +34,7 @@ from c2m_tpu_torch.utils.convert import (convert_with_report, flatten,
                                          module_state_from_jax,
                                          module_state_to_jax,
                                          to_jax_variables)
-from tests.torch_port_fixtures import (make_batch, port_cfg,
+from tests.torch_port_fixtures import (LEVEL0, make_batch, port_cfg,
                                        random_jax_variables, random_leaves,
                                        tiny_cfg)
 
@@ -98,8 +98,8 @@ def test_flow_embedder():
     jm = jg.FlowEmbedder(fp)
     tm = tg.FlowEmbedder(port_cfg(cfg).model_params.flow_embedder, 6)
     variables = _carry(jm, tm, x, train=False)
-    want = jax.jit(lambda v, a: jm.apply(v, a, train=False))(
-        variables, jnp.asarray(x))
+    want = jax.jit(lambda v, a: jm.apply(v, a, train=False),
+                   compiler_options=LEVEL0)(variables, jnp.asarray(x))
     got = tm.eval()(torch.as_tensor(x))
     assert len(got) == len(want) == fp.num_down_blocks + 1
     assert got[0] is None
@@ -108,7 +108,8 @@ def test_flow_embedder():
         _close(g.detach(), w, f"eval map {i}")
 
     want, moved = jax.jit(lambda v, a: jm.apply(
-        v, a, train=True, mutable=["batch_stats"]))(variables, jnp.asarray(x))
+        v, a, train=True, mutable=["batch_stats"]),
+        compiler_options=LEVEL0)(variables, jnp.asarray(x))
     got = tm.train()(torch.as_tensor(x))
     for i, (g, w) in enumerate(zip(got, want)):
         assert tuple(g.shape) == w.shape, i
@@ -180,7 +181,8 @@ def test_generator_forward(generator_pair):
     assert branch in variables["params"]
     if generator_pair["name"] == "kitti":
         assert {"pre_decode", "down_warped_0"} <= set(variables["params"])
-    want = jax.jit(lambda v, *a: jm.apply(v, *a, train=False))(
+    want = jax.jit(lambda v, *a: jm.apply(v, *a, train=False),
+                   compiler_options=LEVEL0)(
         variables, *map(jnp.asarray, (frame, flow, occ)))
     with torch.no_grad():
         got = tm.eval()(*map(torch.as_tensor, (frame, flow, occ)))
@@ -201,7 +203,8 @@ def test_generator_gradients(generator_pair):
                           mutable=["batch_stats"])
         return jnp.mean(jnp.square(out))
 
-    jgrads = jax.jit(jax.grad(loss))(variables["params"])
+    jgrads = jax.jit(jax.grad(loss), compiler_options=LEVEL0)(
+        variables["params"])
     tm.train().zero_grad()
     out = tm(*map(torch.as_tensor, (frame, flow, occ)))
     out.square().mean().backward()

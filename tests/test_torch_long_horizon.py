@@ -30,8 +30,9 @@ from c2m_tpu_torch.serving import z_dim
 from c2m_tpu_torch.train.state import create_train_state
 from c2m_tpu_torch.train.step import make_train_step
 from c2m_tpu_torch.utils.convert import from_jax_variables
-from tests.test_torch_train_step import _jax_draws, _jax_step
-from tests.torch_port_fixtures import (make_batch, port_cfg, port_model,
+from tests.test_torch_train_step import _jax_draws, _jax_metrics
+from tests.torch_port_fixtures import (LEVEL0, make_batch, port_cfg,
+                                       port_model, port_shapes,
                                        random_jax_variables, random_leaves,
                                        to_jax, to_torch)
 
@@ -88,8 +89,9 @@ def test_full_width_model_has_the_long_horizon_shapes():
     assert len(heads) == 10
 
 
-@pytest.mark.parametrize("use_gt", [True, False])
-def test_inference_matches_jax(banded_route, use_gt):
+@pytest.fixture(scope="module")
+def inference_inputs():
+    """One batch, one set of weights and the port model for both cases."""
     cfg = long_cfg(batch_size=2)
     batch = make_batch(cfg, seed=5, num_objects=NODES)
     assert batch["targets_theta"].shape == (2, NODES, FRAMES, 6)
@@ -98,14 +100,20 @@ def test_inference_matches_jax(banded_route, use_gt):
     z = rng.randn(2, z_dim(port_cfg(cfg))).astype(np.float32)
     click = np.zeros((2, NODES), np.float32)
     click[[0, 1], [3, 17]] = 1
+    return cfg, batch, variables, z, click, port_model(cfg, variables)
+
+
+@pytest.mark.parametrize("use_gt", [True, False])
+def test_inference_matches_jax(inference_inputs, banded_route, use_gt):
+    cfg, batch, variables, z, click, model = inference_inputs
     # jitted: one compile of the graph, where an eager apply compiles each
     # of its operations on its own (both cases on an 8-core CPU: 28 s
     # against 80 s)
     want = jax.jit(lambda v, b, zz, c: JaxGenerator(cfg).apply(
-        v, b, zz, c, use_gt_eval=use_gt, method="inference"))(
+        v, b, zz, c, use_gt_eval=use_gt, method="inference"),
+        compiler_options=LEVEL0)(
         variables, to_jax(batch), jnp.asarray(z), jnp.asarray(click))
-    model = port_model(cfg, variables)
-    banded_route.clear()                 # make_batch rasterized its targets
+    banded_route.clear()
     got = model.inference(to_torch(batch), torch.from_numpy(z),
                           torch.from_numpy(click), use_gt)
     assert banded_route == [1]
@@ -124,10 +132,7 @@ def test_train_step_metrics_match_jax(banded_route):
     pcfg = port_cfg(cfg)
     batch = make_batch(cfg, seed=8, num_objects=NODES)
     jmodel = JaxTrainModel(cfg)
-    key = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        {"params": key, "sample": key}, to_jax(batch), train=True))
-    variables = random_leaves(shapes, seed=9)
+    variables = random_leaves(port_shapes(cfg), seed=9)
     tx = build_optimizer(cfg)
     state = JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=variables["params"],
@@ -135,8 +140,7 @@ def test_train_step_metrics_match_jax(banded_route):
         batch_stats=variables["batch_stats"], spectral=variables["spectral"],
         apply_fn=jmodel.apply, tx=tx)
     rng = jax.random.PRNGKey(3)
-    _, jmetrics, _, mu, jclick = _jax_step(cfg, jmodel)(state, to_jax(batch),
-                                                       rng)
+    jmetrics, mu, jclick = _jax_metrics(cfg, jmodel)(state, to_jax(batch), rng)
     eps, click = _jax_draws(jmodel, variables, jax.random.fold_in(rng, 0),
                             mu.shape, batch["num_real_nodes"], NODES)
     np.testing.assert_array_equal(click, np.asarray(jclick))

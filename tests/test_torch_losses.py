@@ -202,9 +202,11 @@ def test_training_losses(use_fw, smooth):
                                     style=0.0)
     tp = types.SimpleNamespace(loss_weights=weights, num_input_frames=1,
                                num_predicted_frames=t, use_fw_of=use_fw)
-    want = jl.training_losses(tp, {k: jnp.asarray(v) for k, v in batch.items()},
-                              {k: jnp.asarray(v) for k, v in out.items()},
-                              lambda x: _taps(x, jnp))
+    # jitted: one compile, where eager JAX compiles each operation alone
+    want = jax.jit(lambda bb, oo: jl.training_losses(
+        tp, bb, oo, lambda x: _taps(x, jnp)))(
+        {k: jnp.asarray(v) for k, v in batch.items()},
+        {k: jnp.asarray(v) for k, v in out.items()})
     got = tl.training_losses(tp, {k: torch.as_tensor(v) for k, v in batch.items()},
                              {k: torch.as_tensor(v) for k, v in out.items()},
                              lambda x: _taps(x, torch))

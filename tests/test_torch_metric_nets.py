@@ -32,6 +32,7 @@ from c2m_tpu_torch.eval import inception as pinc
 from c2m_tpu_torch.eval import yolov3 as pyolo
 from c2m_tpu_torch.utils import convert
 from tests.torch_metric_fixtures import NETS, net_weights, seeded, within
+from tests.torch_port_fixtures import LEVEL0
 
 _CACHE = {}
 
@@ -50,7 +51,8 @@ def jax_apply(name, variables, x, **kw):
     key = (name, tuple(sorted(kw.items())))
     if key not in _JITTED:
         model = NETS[name][0]()
-        _JITTED[key] = jax.jit(lambda v, x: model.apply(v, x, **kw))
+        _JITTED[key] = jax.jit(lambda v, x: model.apply(v, x, **kw),
+                               compiler_options=LEVEL0)
     return np.asarray(_JITTED[key](variables, jnp.asarray(x)))
 
 

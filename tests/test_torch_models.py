@@ -17,7 +17,7 @@ from c2m_tpu.models.c2m import C2MGenerator as JaxC2M
 from c2m_tpu.nn import layers as jl
 from c2m_tpu_torch.nn import layers as tl
 from c2m_tpu_torch.utils.convert import module_state_from_jax
-from tests.torch_port_fixtures import (make_batch, port_model,
+from tests.torch_port_fixtures import (LEVEL0, make_batch, port_model,
                                        random_jax_variables, random_leaves,
                                        tiny_cfg, to_jax, to_torch)
 
@@ -82,7 +82,8 @@ def setup():
 
 def _japply(setup, fn, *args):
     _, _, variables, jm, _ = setup
-    return jax.jit(lambda v, *a: jm.apply(v, *a, method=fn))(variables, *args)
+    return jax.jit(lambda v, *a: jm.apply(v, *a, method=fn),
+                   compiler_options=LEVEL0)(variables, *args)
 
 
 @pytest.fixture(scope="module")

@@ -77,7 +77,13 @@ def test_the_walk_sees_the_port_and_catches_an_import(tmp_path):
             "c2m_tpu_torch/tools/generate_segmentation.py",
             "c2m_tpu_torch/tools/generate_trajectories.py",
             "c2m_tpu_torch/tools/precompute_flow.py",
-            "c2m_tpu_torch/tools/evaluate_cityscapes.py"} <= names
+            "c2m_tpu_torch/tools/evaluate_cityscapes.py",
+            "c2m_tpu_torch/tools/convert_c2m.py",
+            "c2m_tpu_torch/tools/export_serving.py",
+            "c2m_tpu_torch/tools/make_synthetic_dataset.py",
+            "c2m_tpu_torch/tools/prepare_gt_labels.py",
+            "c2m_tpu_torch/tools/kitti2cityscapes_semantic.py",
+            "c2m_tpu_torch/ops/upfirdn.py"} <= names
     probe = tmp_path / "probe.py"
     probe.write_text('"""from c2m_tpu import x (a docstring)"""\n'
                      "def f():\n    from c2m_tpu.config import Config\n"
@@ -119,8 +125,10 @@ def _entry_points():
     from c2m_tpu_torch.train.flow_onthefly import OnTheFlyFlow
     from c2m_tpu_torch.train.state import create_train_state
     from c2m_tpu_torch.train.trainer import Trainer
-    from c2m_tpu_torch.tools import (generate_segmentation,
-                                     generate_trajectories, precompute_flow)
+    from c2m_tpu_torch.tools import (convert_c2m, export_serving,
+                                     generate_segmentation,
+                                     generate_trajectories,
+                                     make_synthetic_dataset, precompute_flow)
     cfg = shrink_model(tiny_config())
     return {
         "make_batch": lambda: make_batch(cfg, seed=0),
@@ -148,6 +156,14 @@ def _entry_points():
              "/nonexistent", "--out", "/nonexistent"]),
         "precompute_flow.main": lambda: precompute_flow.main(
             ["--config", "/nonexistent.yaml"]),
+        "convert_c2m.main": lambda: convert_c2m.main(
+            ["--checkpoint", "/nonexistent.pth.tar", "--config",
+             "/nonexistent.yaml", "--out", "/nonexistent"]),
+        "export_serving.main": lambda: export_serving.main(
+            ["--config", "/nonexistent.yaml", "--job-dir", "/nonexistent",
+             "--out", "/nonexistent"]),
+        "make_synthetic_dataset.main": lambda: make_synthetic_dataset.main(
+            ["--root", "/nonexistent"]),
     }
 
 
@@ -160,7 +176,9 @@ def _entry_points():
                                   "make_yolo_detector",
                                   "generate_segmentation.main",
                                   "generate_trajectories.main",
-                                  "precompute_flow.main"])
+                                  "precompute_flow.main", "convert_c2m.main",
+                                  "export_serving.main",
+                                  "make_synthetic_dataset.main"])
 def test_entry_point_defaults_to_the_card(name):
     """With no ``device`` an entry point asks for the card. This host has
     none, so it must raise an error that names CUDA, before anything else

@@ -24,6 +24,12 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
+def _jx(f, *arrays):
+    """``f`` of the arrays through one jit: one compile of the JAX op, where
+    eager JAX compiles each of its operations on its own."""
+    return jax.jit(f)(*(jnp.asarray(a) for a in arrays))
+
+
 def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), atol=atol,
@@ -41,7 +47,7 @@ def test_resample_plain_matches_jnp(shape, masked):
     img = rng.rand(*shape).astype(np.float32)
     flow = (rng.rand(*shape[:3], 2) * 24 - 12).astype(np.float32)
     mask = rng.rand(*shape[:3], 1).astype(np.float32)
-    want = np.asarray(jwarp._resample_jnp(jnp.asarray(img), jnp.asarray(flow)))
+    want = np.asarray(_jx(jwarp._resample_jnp, img, flow))
     if masked:
         got = warp.resample_masked(_t(img), _t(flow), _t(mask))
         want = want * mask
@@ -81,8 +87,8 @@ def test_bilinear_sample_matches_jnp(padding):
     img = rng.rand(2, 9, 13, 3).astype(np.float32)
     sx = (rng.rand(2, 5, 7) * 20 - 4).astype(np.float32)
     sy = (rng.rand(2, 5, 7) * 16 - 4).astype(np.float32)
-    want = jax.vmap(lambda i, x, y: jwarp.bilinear_sample(i, x, y, padding))(
-        jnp.asarray(img), jnp.asarray(sx), jnp.asarray(sy))
+    want = _jx(jax.vmap(lambda i, x, y: jwarp.bilinear_sample(
+        i, x, y, padding)), img, sx, sy)
     _close(warp.bilinear_sample(_t(img), _t(sx), _t(sy), padding), want)
 
 
@@ -92,13 +98,13 @@ def test_affine_grid_sample_and_flow_match_jnp():
     img = rng.rand(3, 12, 20, 2).astype(np.float32)
     for h, w in ((12, 20), (1, 7), (64, 128)):
         _close(warp.affine_grid(_t(theta), h, w),
-               jwarp.affine_grid(jnp.asarray(theta), h, w))
+               _jx(lambda t: jwarp.affine_grid(t, h, w), theta))
         # pixel flows reach (size-1)/2 x grid: 1e-5 relative to that scale
         _close(warp.affine_flow(_t(theta), h, w),
-               jwarp.affine_flow(jnp.asarray(theta), h, w), atol=ATOL * w)
-    grid = jwarp.affine_grid(jnp.asarray(theta), 12, 20)
-    want = jax.vmap(lambda i, g: jwarp.grid_sample_normalized(i, g))(
-        jnp.asarray(img), grid)
+               _jx(lambda t: jwarp.affine_flow(t, h, w), theta),
+               atol=ATOL * w)
+    grid = _jx(lambda t: jwarp.affine_grid(t, 12, 20), theta)
+    want = _jx(jax.vmap(jwarp.grid_sample_normalized), img, grid)
     _close(warp.grid_sample_normalized(_t(img), _t(grid)), want)
 
 
@@ -107,7 +113,7 @@ def test_affine_grid_sample_and_flow_match_jnp():
 def test_resize_bilinear_matches_jnp(size, align):
     x = np.random.RandomState(8).rand(2, 3, 16, 24, 5).astype(np.float32)
     _close(warp.resize_bilinear(_t(x), size, align),
-           jwarp.resize_bilinear(jnp.asarray(x), size, align))
+           _jx(lambda a: jwarp.resize_bilinear(a, size, align), x))
 
 
 @pytest.mark.parametrize("size", [(32, 48), (5, 9)])
@@ -116,11 +122,11 @@ def test_resize_nearest_and_flow_match_jnp(size):
     x = rng.rand(2, 16, 24, 3).astype(np.float32)
     flow = (rng.rand(2, 16, 24, 2) * 10 - 5).astype(np.float32)
     _close(warp.resize_nearest(_t(x), size),
-           jwarp.resize_nearest(jnp.asarray(x), size))
+           _jx(lambda a: jwarp.resize_nearest(a, size), x))
     _close(warp.resize_flow(_t(flow), size),
-           jwarp.resize_flow(jnp.asarray(flow), size))
+           _jx(lambda a: jwarp.resize_flow(a, size), flow))
     _close(warp.resize_video(_t(x[None]), size, "nearest"),
-           jwarp.resize_video(jnp.asarray(x[None]), size, "nearest"))
+           _jx(lambda a: jwarp.resize_video(a, size, "nearest"), x[None]))
 
 
 @pytest.mark.parametrize("shape", [(3, 16, 32), (2, 128, 256)])
@@ -129,11 +135,11 @@ def test_splat_plain_matches_jnp(shape):
     flow = (np.random.RandomState(10).rand(b, h, w, 2) * 20 - 10).astype(
         np.float32)
     _close(splat.occlusion_map(_t(flow)),
-           jsplat.occlusion_map(jnp.asarray(flow), use_pallas=False))
+           _jx(lambda f: jsplat.occlusion_map(f, use_pallas=False), flow))
     xs, ys = np.meshgrid(np.arange(w), np.arange(h))
     coords = (np.stack([xs, ys], -1)[None] + flow).astype(np.float32)
     _close(splat.corresponding_map(_t(coords)),
-           jsplat.corresponding_map(jnp.asarray(coords)))
+           _jx(jsplat.corresponding_map, coords))
 
 
 def test_splat_matches_pallas_interpret():
@@ -163,7 +169,7 @@ def test_roi_align_matches_jnp():
                       [[3, 3, 3.5, 3.5], [-8, -8, 40, 20], [0, 0, 0, 0]]],
                      np.float32)
     _close(roi.roi_align(_t(feats), _t(boxes), 7, 0.25),
-           jroi.roi_align(jnp.asarray(feats), jnp.asarray(boxes), 7, 0.25))
+           _jx(lambda f, b: jroi.roi_align(f, b, 7, 0.25), feats, boxes))
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

@@ -37,7 +37,7 @@ from c2m_tpu_torch.models import panoptic_deeplab as ppd
 from c2m_tpu_torch.tools import generate_segmentation as gen
 from c2m_tpu_torch.utils import convert
 from tests.torch_metric_fixtures import seeded, within
-from tests.torch_port_fixtures import random_leaves
+from tests.torch_port_fixtures import LEVEL0, random_leaves
 from tests.torch_preprocess_fixtures import (jax_variables, jnp_list, nhwc,
                                              port_module, to_nhwc)
 from tools.convert_panoptic import convert as tool_convert
@@ -65,7 +65,9 @@ def jax_outputs(x):
     """The JAX net's outputs at the decoder's resolution (one compile)."""
     if "apply" not in _CACHE:
         model = jpd.PanopticDeepLab(upsample=False)
-        _CACHE["apply"] = jax.jit(lambda v, x: model.apply(v, x, train=False))
+        _CACHE["apply"] = jax.jit(
+            lambda v, x: model.apply(v, x, train=False),
+            compiler_options=LEVEL0)
     _, variables, _ = net_and_variables()
     return _CACHE["apply"](variables, jnp.asarray(x))
 

@@ -10,8 +10,11 @@ Gates, each for its reason:
   ((size−1)/2 px per normalized unit).
 """
 
+import functools
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -31,8 +34,11 @@ def _port(inst, ids, mask, th):
 
 
 def _jax(inst, ids, mask, th, **kw):
-    out = jraster(jnp.asarray(inst), jnp.asarray(ids), jnp.asarray(mask),
-                  jnp.asarray(th), compute_fw=True, **kw)
+    # jitted: one compile of the rasterizer, where eager JAX compiles each
+    # of its operations on its own (11 s against under 1 s on 8 cores)
+    out = jax.jit(functools.partial(jraster, compute_fw=True, **kw))(
+        jnp.asarray(inst), jnp.asarray(ids), jnp.asarray(mask),
+        jnp.asarray(th))
     return {k: np.asarray(v) for k, v in out.items()}
 
 

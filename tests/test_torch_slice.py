@@ -26,7 +26,7 @@ import yaml
 from c2m_tpu import serving as jserving
 from c2m_tpu.models.c2m import C2MGenerator as JaxC2M
 from c2m_tpu_torch.serving import ServingModel, z_dim
-from tests.torch_port_fixtures import (make_batch, port_cfg, port_model, random_jax_variables,
+from tests.torch_port_fixtures import (LEVEL0, make_batch, port_cfg, port_model, random_jax_variables,
                                        tiny_cfg, to_jax, to_torch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,7 +49,8 @@ def test_inference_matches_jax(setup, use_gt_eval):
     cfg, batch, variables, z, click = setup
     jm = JaxC2M(cfg)
     want = jax.jit(lambda v, b, zz, c: jm.apply(
-        v, b, zz, c, use_gt_eval, method="inference"))(
+        v, b, zz, c, use_gt_eval, method="inference"),
+        compiler_options=LEVEL0)(
         variables, to_jax(batch), jnp.asarray(z), jnp.asarray(click))
     with torch.inference_mode():
         got = port_model(cfg, variables).inference(

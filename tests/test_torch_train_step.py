@@ -44,10 +44,34 @@ from c2m_tpu_torch.train.step import (combined_loss, make_eval_step,
                                       make_train_step)
 from c2m_tpu_torch.utils.convert import (convert_with_report,
                                          from_jax_variables, to_jax_variables)
-from tests.torch_port_fixtures import (make_batch, port_cfg, random_leaves,
-                                       tiny_cfg, to_jax, to_torch)
+from tests.torch_port_fixtures import (LEVEL0, make_batch, port_cfg,
+                                       port_shapes, random_leaves, tiny_cfg,
+                                       to_jax, to_torch)
 
 ATOL = RTOL = 1e-4
+
+
+def _jax_loss(cfg, state, batch, step_rng):
+    """The JAX package's train objective (train/step.py) as a function of
+    the parameters -> (total, (metrics, mutated collections, mu, click))."""
+    def loss_fn(params):
+        (out, ld, ldi, ldv), mutated = state.apply_fn(
+            {"params": params, "batch_stats": state.batch_stats,
+             "spectral": state.spectral}, batch, train=True,
+            rngs={"sample": step_rng},
+            mutable=["batch_stats", "spectral"])
+        total_gen = total_generator_loss(cfg, ld)
+        total_di = total_discriminator_loss(ldi)
+        total_dv = total_discriminator_loss(ldv)
+        metrics = dict(ld, total_gen=total_gen, total_image_dis=total_di,
+                       d_real_image=ldi["d_real"],
+                       d_fake_image=ldi["d_fake"],
+                       total_video_dis=total_dv,
+                       d_real_video=ldv["d_real"],
+                       d_fake_video=ldv["d_fake"])
+        aux = (metrics, mutated, out["mu"], out["click_mask"])
+        return total_gen + total_di + total_dv, aux
+    return loss_fn
 
 
 def _jax_step(cfg, model):
@@ -55,37 +79,25 @@ def _jax_step(cfg, model):
     gradient and the two draws of the 'sample' stream."""
     def step(state, batch, rng):
         step_rng = jax.random.fold_in(rng, state.step)
-
-        def loss_fn(params):
-            (out, ld, ldi, ldv), mutated = state.apply_fn(
-                {"params": params, "batch_stats": state.batch_stats,
-                 "spectral": state.spectral}, batch, train=True,
-                rngs={"sample": step_rng},
-                mutable=["batch_stats", "spectral"])
-            total_gen = total_generator_loss(cfg, ld)
-            total_di = total_discriminator_loss(ldi)
-            total_dv = total_discriminator_loss(ldv)
-            metrics = dict(ld, total_gen=total_gen, total_image_dis=total_di,
-                           d_real_image=ldi["d_real"],
-                           d_fake_image=ldi["d_fake"],
-                           total_video_dis=total_dv,
-                           d_real_video=ldv["d_real"],
-                           d_fake_video=ldv["d_fake"])
-            aux = (metrics, mutated, out["mu"], out["click_mask"])
-            return total_gen + total_di + total_dv, aux
-
         grads, (metrics, mutated, mu, click) = jax.grad(
-            loss_fn, has_aux=True)(state.params)
+            _jax_loss(cfg, state, batch, step_rng), has_aux=True)(
+            state.params)
         new_state = state.apply_gradients(grads).replace(
             batch_stats=mutated["batch_stats"], spectral=mutated["spectral"])
         return new_state, metrics, grads, mu, click
-    # XLA's backend optimizations off: this reference is compiled once per
-    # test module and run once, and on the CPU its compile is the larger
-    # part of the module's time; its outputs move by float32 rounding only,
-    # inside the gates. The inference references gain nothing from it and
-    # keep the default.
-    return jax.jit(step,
-                   compiler_options={"xla_backend_optimization_level": 0})
+    return jax.jit(step, compiler_options=LEVEL0)
+
+
+def _jax_metrics(cfg, model):
+    """The forward half of :func:`_jax_step`: its metrics and the two draws,
+    without the gradient (10 s against 47 s of compile and run at the
+    long-horizon test's size, 8 cores)."""
+    def metrics(state, batch, rng):
+        step_rng = jax.random.fold_in(rng, state.step)
+        _, (m, _, mu, click) = _jax_loss(cfg, state, batch, step_rng)(
+            state.params)
+        return m, mu, click
+    return jax.jit(metrics, compiler_options=LEVEL0)
 
 
 def _jax_draws(model, variables, step_rng, mu_shape, num_real, n_max):
@@ -130,21 +142,20 @@ def both():
     tmodel.load_state_dict(from_jax_variables(variables, pcfg))
     vgg_before = {k: v.clone() for k, v in tmodel.vgg.state_dict().items()}
     tbatch = to_torch(batch)
-    # forward + backward only, for the gradients (the step clears nothing
-    # it has not set itself: a fresh model has no .grad)
+    # a second model with the weights before the step, for the tests that
+    # run their own forward
     probe = C2MTrainModel(pcfg)
     probe.load_state_dict(tmodel.state_dict())
-    probe.train()
-    _, ld, ldi, ldv = probe(tbatch, torch.as_tensor(eps), torch.as_tensor(click))
-    combined_loss(pcfg, ld, ldi, ldv)[0].backward()
-    tgrads = {n: p.grad for n, p in probe.named_parameters()}
 
     tmetrics = make_train_step(pcfg)(tstate, tbatch, torch.as_tensor(eps),
                                      torch.as_tensor(click))
+    # the step leaves the gradient it took in each parameter's .grad
+    tgrads = {n: p.grad for n, p in tmodel.named_parameters()}
     return dict(cfg=cfg, pcfg=pcfg, variables=variables, new_state=new_state,
                 jmetrics=jmetrics, jgrads=jgrads, tstate=tstate,
                 tmetrics=tmetrics, tgrads=tgrads, probe=probe,
-                vgg_before=vgg_before, batch=tbatch, eps=eps, click=click)
+                vgg_before=vgg_before, batch=tbatch, eps=eps, click=click,
+                shapes=shapes)
 
 
 def test_metrics_match(both):
@@ -269,6 +280,16 @@ def test_discriminators_get_the_generator_terms_gradient(both):
                    for n, p in probe.named_parameters()
                    if n.startswith(prefix) and p.grad is not None)
         assert norm > 0, prefix
+
+
+def test_port_shapes_are_the_eval_shape_tree(both):
+    """``tests/torch_port_fixtures.port_shapes`` (the port's model through
+    the bridge) gives the paths and shapes of ``jax.eval_shape`` of the JAX
+    init, which the other parity fixtures then skip."""
+    def shapes(tree):
+        return {"/".join(str(k.key) for k in path): tuple(leaf.shape)
+                for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert shapes(port_shapes(both["cfg"])) == shapes(both["shapes"])
 
 
 def test_converter_covers_the_train_tree(both):

@@ -21,6 +21,15 @@ from c2m_tpu_torch import config as port_config
 from c2m_tpu_torch.data import synthetic as port_synthetic
 
 
+# XLA's backend optimizations off for a JAX reference: each is compiled once
+# per test module and run once or twice, and on the CPU its compile is the
+# larger part of its time (8 cores: the tiny_config train step 20 s against
+# 33 s, the KITTI model's inference 5.8 s against 7.3 s, Panoptic-DeepLab at
+# 64x128 14.4 s against 17.1 s); the outputs move by float32 rounding only,
+# inside the gates
+LEVEL0 = {"xla_backend_optimization_level": 0}
+
+
 def share_cores():
     """Under pytest-xdist, give each worker its share of the cores for
     PyTorch's intra-op threads. Six workers that each start a thread per
@@ -70,6 +79,22 @@ def random_jax_variables(cfg, batch, seed: int = 0):
         lambda: model.init({"params": key, "sample": key},
                            {k: jnp.asarray(v) for k, v in batch.items()},
                            train=False)), seed)
+
+
+def port_shapes(cfg):
+    """The JAX ``C2MTrainModel`` variable tree of ``cfg`` (a JAX-package
+    config) with unset numpy leaves, for :func:`random_leaves`, which reads
+    only their paths and shapes: the port's model, allocated but not
+    initialised, carried through the bridge, which consumes every JAX leaf
+    and fills every port tensor. It is the tree ``jax.eval_shape`` of the
+    JAX init gives (``tests/test_torch_train_step.py`` holds the two equal)
+    without tracing the JAX model."""
+    from c2m_tpu_torch.train.model import C2MTrainModel
+    from c2m_tpu_torch.utils.convert import to_jax_variables
+    pcfg = port_cfg(cfg)
+    with torch.device("meta"):
+        model = C2MTrainModel(pcfg)
+    return to_jax_variables(model.to_empty(device="cpu").state_dict(), pcfg)
 
 
 def random_leaves(shapes, seed: int = 0):

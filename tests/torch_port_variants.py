@@ -26,13 +26,13 @@ from c2m_tpu.serving import flatten_tree
 from c2m_tpu.train.model import C2MTrainModel as JaxTrainModel
 from c2m_tpu.train.state import (TrainState as JaxTrainState, build_optimizer,
                                  param_labels)
-from c2m_tpu_torch.train.model import C2MTrainModel
 from c2m_tpu_torch.train.state import GROUPS, create_train_state
-from c2m_tpu_torch.train.step import combined_loss, make_train_step
+from c2m_tpu_torch.train.step import make_train_step
 from c2m_tpu_torch.utils.convert import from_jax_variables, to_jax_variables
 from tests.test_torch_train_step import _jax_draws, _jax_step
-from tests.torch_port_fixtures import (make_batch, port_cfg, random_leaves,
-                                       tiny_cfg, to_jax, to_torch)
+from tests.torch_port_fixtures import (LEVEL0, make_batch, port_cfg,
+                                       port_shapes, random_leaves, tiny_cfg,
+                                       to_jax, to_torch)
 
 ATOL = RTOL = 1e-4
 # the variant's own parameters: each must receive a gradient
@@ -55,10 +55,7 @@ def run(variant: str):
     pcfg = port_cfg(cfg)
     batch = make_batch(cfg, seed=0)
     jmodel = JaxTrainModel(cfg)
-    key = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        {"params": key, "sample": key}, to_jax(batch), train=True))
-    variables = random_leaves(shapes, seed=4)
+    variables = random_leaves(port_shapes(cfg), seed=4)
 
     # inference, GT thetas, eval mode
     rng = np.random.RandomState(2)
@@ -67,13 +64,13 @@ def run(variant: str):
     click = np.zeros((2, cfg.dataset_params.max_objects), np.float32)
     click[:, 1] = 1.0
     want_inf = jax.jit(lambda v, b, zz, c: jmodel.apply(
-        v, b, zz, c, True, method="inference"))(
+        v, b, zz, c, True, method="inference"), compiler_options=LEVEL0)(
         variables, to_jax(batch), jnp.asarray(z), jnp.asarray(click))
-    probe = C2MTrainModel(pcfg)
-    probe.load_state_dict(from_jax_variables(variables, pcfg))
+    tstate = create_train_state(pcfg, seed=0, device="cpu")
+    tstate.model.load_state_dict(from_jax_variables(variables, pcfg))
     with torch.inference_mode():
-        got_inf = probe.eval().inference(to_torch(batch), torch.as_tensor(z),
-                                         torch.as_tensor(click), True)
+        got_inf = tstate.model.eval().inference(
+            to_torch(batch), torch.as_tensor(z), torch.as_tensor(click), True)
 
     # one train step
     tx = build_optimizer(cfg)
@@ -88,20 +85,15 @@ def run(variant: str):
     eps, click_mask = _jax_draws(jmodel, variables, jax.random.fold_in(rng, 0),
                                  mu.shape, batch["num_real_nodes"],
                                  cfg.dataset_params.max_objects)
-    tstate = create_train_state(pcfg, seed=0, device="cpu")
-    tstate.model.load_state_dict(from_jax_variables(variables, pcfg))
-    tbatch = to_torch(batch)
-    probe.train()
-    _, ld, ldi, ldv = probe(tbatch, torch.as_tensor(eps),
-                            torch.as_tensor(click_mask))
-    combined_loss(pcfg, ld, ldi, ldv)[0].backward()
-    tgrads = {n: p.grad for n, p in probe.named_parameters()}
-    tmetrics = make_train_step(pcfg)(tstate, tbatch, torch.as_tensor(eps),
+    # the step keeps the gradient it took in each parameter's .grad
+    tmetrics = make_train_step(pcfg)(tstate, to_torch(batch),
+                                     torch.as_tensor(eps),
                                      torch.as_tensor(click_mask))
+    tgrads = {n: p.grad for n, p in tstate.model.named_parameters()}
     return dict(variant=variant, pcfg=pcfg, variables=variables,
                 want_inf=want_inf, got_inf=got_inf, new_state=new_state,
                 jmetrics=jmetrics, jgrads=jgrads, tstate=tstate,
-                tmetrics=tmetrics, tgrads=tgrads, probe=probe)
+                tmetrics=tmetrics, tgrads=tgrads)
 
 
 def check_inference(r):
@@ -126,7 +118,8 @@ def check_metrics(r):
 
 
 def _grad_trees(r):
-    sd = {k: torch.zeros_like(v) for k, v in r["probe"].state_dict().items()}
+    sd = {k: torch.zeros_like(v)
+          for k, v in r["tstate"].model.state_dict().items()}
     sd.update({n: g for n, g in r["tgrads"].items() if g is not None})
     got = flatten_tree({"params": to_jax_variables(sd, r["pcfg"])["params"]})
     want = flatten_tree({"params": r["jgrads"]})
