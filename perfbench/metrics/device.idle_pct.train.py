@@ -1,0 +1,9 @@
+"""Share of the traced window with no kernel or copy on the device."""
+
+from perfbench import tracing
+
+UNIT = "%"
+
+
+def read(run):
+    return tracing.idle_pct(run) if run.kind == "train" else None
