@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.models.appearance import AppearanceEncoder, level_features
 from c2m_tpu_torch.models.dense_motion import (DenseMotionDecoder,
@@ -265,20 +266,25 @@ class C2MGenerator(nn.Module):
         batch = self._prepare(batch)
         out: Dict[str, torch.Tensor] = {}
 
-        app = self._appearance(batch)
-        vae_in = self._vae_inputs(batch)
-        bg = self.motion_encoder_bg(vae_in["bg"])
-        fg = self.motion_encoder_fg(vae_in["fg"])
-        out["mu"] = torch.cat([bg["mu"], fg["mu"]], dim=-1).float()
-        out["logvar"] = torch.cat([bg["logvar"], fg["logvar"]], dim=-1).float()
-        z_m = reparameterize(out["mu"], out["logvar"], generator, eps)
+        with trace.span("c2m.model.appearance"):
+            app = self._appearance(batch)
+        with trace.span("c2m.model.motion_encoder"):
+            vae_in = self._vae_inputs(batch)
+            bg = self.motion_encoder_bg(vae_in["bg"])
+            fg = self.motion_encoder_fg(vae_in["fg"])
+            out["mu"] = torch.cat([bg["mu"], fg["mu"]], dim=-1).float()
+            out["logvar"] = torch.cat([bg["logvar"], fg["logvar"]],
+                                      dim=-1).float()
+            z_m = reparameterize(out["mu"], out["logvar"], generator, eps)
 
-        if click_mask is None:
-            _, click_mask = sample_click_indices(
-                batch["num_real_nodes"], batch["node_mask"].shape[1], generator)
-        gnn = self.sparse_motion_estimator(
-            batch["nodes_x"], app["objects_feature"].float(),
-            batch["targets_theta"], batch["node_mask"], click_mask)
+        with trace.span("c2m.model.gnn"):
+            if click_mask is None:
+                _, click_mask = sample_click_indices(
+                    batch["num_real_nodes"], batch["node_mask"].shape[1],
+                    generator)
+            gnn = self.sparse_motion_estimator(
+                batch["nodes_x"], app["objects_feature"].float(),
+                batch["targets_theta"], batch["node_mask"], click_mask)
         out["thetas"] = gnn["thetas"]
         out["click_mask"] = click_mask
 
@@ -291,23 +297,27 @@ class C2MGenerator(nn.Module):
                                             raster_thetas.float())
         out.update(sparse)
 
-        sparse_feats = self.sparse_feature_encoder(sparse["sparse_motion_bw"])
-        z = self._motion_code(z_m, app["app_encoded"])
-        dense_bw = self.dense_generator_bw(app, sparse_feats,
-                                           sparse["sparse_motion_bw"],
-                                           sparse["sparse_occ_bw"], z)
-        out["dense_motion_bw"] = dense_bw["dense_motion"]
-        out["occlusion_bw"] = dense_bw["occlusion"]
-        if tp.use_fw_of:
-            feats_fw = self.sparse_feature_encoder(sparse["sparse_motion_fw"])
-            dense_fw = self.dense_generator_fw(app, feats_fw,
-                                               sparse["sparse_motion_fw"],
-                                               sparse["sparse_occ_fw"], z)
-            out["dense_motion_fw"] = dense_fw["dense_motion"]
-            out["occlusion_fw"] = dense_fw["occlusion"]
+        with trace.span("c2m.model.dense_motion"):
+            sparse_feats = self.sparse_feature_encoder(
+                sparse["sparse_motion_bw"])
+            z = self._motion_code(z_m, app["app_encoded"])
+            dense_bw = self.dense_generator_bw(app, sparse_feats,
+                                               sparse["sparse_motion_bw"],
+                                               sparse["sparse_occ_bw"], z)
+            out["dense_motion_bw"] = dense_bw["dense_motion"]
+            out["occlusion_bw"] = dense_bw["occlusion"]
+            if tp.use_fw_of:
+                feats_fw = self.sparse_feature_encoder(
+                    sparse["sparse_motion_fw"])
+                dense_fw = self.dense_generator_fw(app, feats_fw,
+                                                   sparse["sparse_motion_fw"],
+                                                   sparse["sparse_occ_fw"], z)
+                out["dense_motion_fw"] = dense_fw["dense_motion"]
+                out["occlusion_fw"] = dense_fw["occlusion"]
 
-        out["generated"] = self._generate_frames(batch, dense_bw)
-        out.update(self._sparse_previews(batch, out))
+        with trace.span("c2m.model.generator"):
+            out["generated"] = self._generate_frames(batch, dense_bw)
+            out.update(self._sparse_previews(batch, out))
         return out
 
     # -- inference ----------------------------------------------------------
@@ -326,10 +336,12 @@ class C2MGenerator(nn.Module):
         batch = self._prepare(batch)
         out: Dict[str, torch.Tensor] = {}
 
-        app = self._appearance(batch)
-        gnn = self.sparse_motion_estimator(
-            batch["nodes_x"], app["objects_feature"].float(),
-            batch["targets_theta"], batch["node_mask"], click_mask)
+        with trace.span("c2m.model.appearance"):
+            app = self._appearance(batch)
+        with trace.span("c2m.model.gnn"):
+            gnn = self.sparse_motion_estimator(
+                batch["nodes_x"], app["objects_feature"].float(),
+                batch["targets_theta"], batch["node_mask"], click_mask)
         out["thetas"] = gnn["thetas"]
         out["click_mask"] = click_mask
         raster_thetas = batch["targets_theta"] if use_gt_eval else gnn["thetas"]
@@ -339,13 +351,16 @@ class C2MGenerator(nn.Module):
                                         raster_thetas.float())
         out.update(sparse)
 
-        sparse_feats = self.sparse_feature_encoder(sparse["sparse_motion_bw"])
-        z = self._motion_code(z_m, app["app_encoded"])
-        dense_bw = self.dense_generator_bw(app, sparse_feats,
-                                           sparse["sparse_motion_bw"],
-                                           sparse["sparse_occ_bw"], z)
-        out["dense_motion_bw"] = dense_bw["dense_motion"]
-        out["occlusion_bw"] = dense_bw["occlusion"]
-        out["generated"] = self._generate_frames(batch, dense_bw)
-        out.update(self._sparse_previews(batch, out))
+        with trace.span("c2m.model.dense_motion"):
+            sparse_feats = self.sparse_feature_encoder(
+                sparse["sparse_motion_bw"])
+            z = self._motion_code(z_m, app["app_encoded"])
+            dense_bw = self.dense_generator_bw(app, sparse_feats,
+                                               sparse["sparse_motion_bw"],
+                                               sparse["sparse_occ_bw"], z)
+            out["dense_motion_bw"] = dense_bw["dense_motion"]
+            out["occlusion_bw"] = dense_bw["occlusion"]
+        with trace.span("c2m.model.generator"):
+            out["generated"] = self._generate_frames(batch, dense_bw)
+            out.update(self._sparse_previews(batch, out))
         return out

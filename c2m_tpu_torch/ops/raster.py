@@ -20,6 +20,7 @@ from typing import Dict
 
 import torch
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.ops import splat
 from c2m_tpu_torch.ops.hopper import maskwarp_banded, maskwarp_kernel
 from c2m_tpu_torch.ops.warp import pointwise_affine_flow
@@ -64,45 +65,51 @@ def generate_sparse_motion(instance: torch.Tensor, inst_ids: torch.Tensor,
     node_mask = node_mask.bool()
     valid = node_mask & (inst_ids != 0)
 
-    warp = (maskwarp_banded.warp_masks_winner_banded if banded(b, n, t, h, w)
-            else maskwarp_kernel.warp_masks_winner)
-    winner_bw = warp(
-        instance[..., 0].contiguous(), inst_ids.contiguous(),
-        valid.contiguous(), thetas)                              # [B, T, H, W]
-    theta_btn = thetas.permute(0, 2, 1, 3).contiguous()          # [B, T, N, 6]
-    flow_all = pointwise_affine_flow(_winning_theta(theta_btn, winner_bw), h, w)
-    has_bw = (winner_bw > 0)[..., None]
-    zero = torch.zeros((), dtype=flow_all.dtype, device=flow_all.device)
-    sparse_bw = torch.where(has_bw, flow_all, zero)
-    sparse_bin = has_bw.to(thetas.dtype)
+    k3 = banded(b, n, t, h, w)
+    with trace.span("c2m.model.raster.k3" if k3 else "c2m.model.raster.k2"):
+        warp = (maskwarp_banded.warp_masks_winner_banded if k3
+                else maskwarp_kernel.warp_masks_winner)
+        winner_bw = warp(
+            instance[..., 0].contiguous(), inst_ids.contiguous(),
+            valid.contiguous(), thetas)                          # [B, T, H, W]
+        theta_btn = thetas.permute(0, 2, 1, 3).contiguous()      # [B, T, N, 6]
+        flow_all = pointwise_affine_flow(
+            _winning_theta(theta_btn, winner_bw), h, w)
+        has_bw = (winner_bw > 0)[..., None]
+        zero = torch.zeros((), dtype=flow_all.dtype, device=flow_all.device)
+        sparse_bw = torch.where(has_bw, flow_all, zero)
+        sparse_bin = has_bw.to(thetas.dtype)
 
-    # Forward: the flow sits at the unwarped object mask, negated
-    # (dense_motion.py:139-140); the winner over static masks is t-independent.
-    ids = inst_ids.to(instance.dtype)
-    obj = (instance[:, None, :, :, 0] == ids[:, :, None, None]) \
-        & valid[:, :, None, None]                                # [B, N, H, W]
-    ranks = torch.arange(1, n + 1, dtype=torch.int32, device=instance.device)
-    winner_fw = torch.where(obj, ranks[None, :, None, None],
-                            torch.zeros((), dtype=torch.int32,
-                                        device=instance.device)).amax(dim=1)
-    theta_fw = _winning_theta(
-        theta_btn, winner_fw[:, None].expand(b, t, h, w))
-    flow_fw_all = pointwise_affine_flow(theta_fw, h, w)
-    has_fw = (winner_fw > 0)[:, None, :, :, None]
-    sparse_fw = torch.where(has_fw, -flow_fw_all, zero)
+        # Forward: the flow sits at the unwarped object mask, negated
+        # (dense_motion.py:139-140); the winner over static masks is
+        # t-independent.
+        ids = inst_ids.to(instance.dtype)
+        obj = (instance[:, None, :, :, 0] == ids[:, :, None, None]) \
+            & valid[:, :, None, None]                            # [B, N, H, W]
+        ranks = torch.arange(1, n + 1, dtype=torch.int32,
+                             device=instance.device)
+        winner_fw = torch.where(obj, ranks[None, :, None, None],
+                                torch.zeros((), dtype=torch.int32,
+                                            device=instance.device)
+                                ).amax(dim=1)
+        theta_fw = _winning_theta(
+            theta_btn, winner_fw[:, None].expand(b, t, h, w))
+        flow_fw_all = pointwise_affine_flow(theta_fw, h, w)
+        has_fw = (winner_fw > 0)[:, None, :, :, None]
+        sparse_fw = torch.where(has_fw, -flow_fw_all, zero)
 
-    # Occlusion by forward splat of the other direction's flow
-    # (dense_motion.py:147-152), binarized at 0.5.
-    occ_bw = splat.clip_mask(splat.occlusion_map(
-        sparse_fw.reshape(b * t, h, w, 2))).reshape(b, t, h, w, 1)
-    occ_fw = splat.clip_mask(splat.occlusion_map(
-        sparse_bw.reshape(b * t, h, w, 2))).reshape(b, t, h, w, 1)
+        # Occlusion by forward splat of the other direction's flow
+        # (dense_motion.py:147-152), binarized at 0.5.
+        occ_bw = splat.clip_mask(splat.occlusion_map(
+            sparse_fw.reshape(b * t, h, w, 2))).reshape(b, t, h, w, 1)
+        occ_fw = splat.clip_mask(splat.occlusion_map(
+            sparse_bw.reshape(b * t, h, w, 2))).reshape(b, t, h, w, 1)
 
-    return {
-        "sparse_motion_bw": sparse_bw,
-        "sparse_motion_fw": sparse_fw,
-        "sparse_motion_bin": sparse_bin,
-        "sparse_occ_bw": occ_bw,
-        "sparse_occ_fw": occ_fw,
-        "winner_bw": winner_bw,
-    }
+        return {
+            "sparse_motion_bw": sparse_bw,
+            "sparse_motion_fw": sparse_fw,
+            "sparse_motion_bin": sparse_bin,
+            "sparse_occ_bw": occ_bw,
+            "sparse_occ_fw": occ_fw,
+            "winner_bw": winner_bw,
+        }

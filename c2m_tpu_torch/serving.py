@@ -30,6 +30,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.device import resolve_device
 from c2m_tpu_torch.models.c2m import DTYPES, C2MGenerator
 from c2m_tpu_torch.parallel import mesh
@@ -165,26 +166,35 @@ class ServingModel:
                  outputs: Optional[Sequence[str]] = None
                  ) -> Dict[str, np.ndarray]:
         """Run sampled inference on one request. ``rng`` is accepted for
-        call compatibility with the JAX server; inference draws nothing."""
-        bs = int(np.shape(next(iter(batch.values())))[0])
-        bucket = self.bucket_for(bs)
-        nif = self.cfg.train_params.num_input_frames
-        arrays = {k: (np.asarray(v)[:, :nif] if k in _FRAME_STREAMS else v)
-                  for k, v in batch.items()
-                  if k != "names" and k not in _TARGET_STREAMS}
-        arrays["__z"] = np.asarray(z_m, np.float32)
-        arrays["__click"] = np.asarray(click, np.float32)
-        arrays = self._pad_to(arrays, bucket, bs)
-        dev = {k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
-               for k, v in arrays.items()}
-        z, ck = dev.pop("__z"), dev.pop("__click")
-        with torch.inference_mode():
-            out = self.model.inference(dev, z, ck, self.use_gt_eval)
-        if outputs is not None:
-            missing = set(outputs) - set(out)
-            if missing:
-                raise KeyError(f"unknown outputs {sorted(missing)} "
-                               f"(available: {sorted(out)})")
-            out = {k: out[k] for k in outputs}
-        return {k: (v[:bs].float() if v.is_floating_point() else v[:bs])
-                .cpu().numpy() for k, v in out.items()}
+        call compatibility with the JAX server; inference draws nothing.
+        Spans (``trace``): ``c2m.serve.request`` around the call, inside it
+        ``prepare``, ``h2d``, ``inference`` and ``output``."""
+        with trace.span("c2m.serve.request"):
+            with trace.span("c2m.serve.prepare"):
+                bs = int(np.shape(next(iter(batch.values())))[0])
+                bucket = self.bucket_for(bs)
+                nif = self.cfg.train_params.num_input_frames
+                arrays = {k: (np.asarray(v)[:, :nif] if k in _FRAME_STREAMS
+                              else v)
+                          for k, v in batch.items()
+                          if k != "names" and k not in _TARGET_STREAMS}
+                arrays["__z"] = np.asarray(z_m, np.float32)
+                arrays["__click"] = np.asarray(click, np.float32)
+                arrays = {k: np.ascontiguousarray(v) for k, v in
+                          self._pad_to(arrays, bucket, bs).items()}
+            with trace.span("c2m.serve.h2d"):
+                dev = {k: torch.as_tensor(v, device=self.device)
+                       for k, v in arrays.items()}
+            z, ck = dev.pop("__z"), dev.pop("__click")
+            with trace.span("c2m.serve.inference"), torch.inference_mode():
+                out = self.model.inference(dev, z, ck, self.use_gt_eval)
+            with trace.span("c2m.serve.output"):
+                if outputs is not None:
+                    missing = set(outputs) - set(out)
+                    if missing:
+                        raise KeyError(f"unknown outputs {sorted(missing)} "
+                                       f"(available: {sorted(out)})")
+                    out = {k: out[k] for k in outputs}
+                return {k: (v[:bs].float() if v.is_floating_point()
+                            else v[:bs]).cpu().numpy()
+                        for k, v in out.items()}

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.losses.losses import (feature_matching_loss, gan_mse_loss,
                                          training_losses)
@@ -94,16 +95,18 @@ class C2MTrainModel(nn.Module):
         tp = self.cfg.train_params
         out = self.c2m(batch, eps, click_mask, generator)
         vgg = self.vgg if tp.loss_weights.perceptual > 0 else None
-        loss_dict = training_losses(tp, batch, out, vgg)
+        with trace.span("c2m.train.losses"):
+            loss_dict = training_losses(tp, batch, out, vgg)
         loss_dis_image: Losses = {}
         loss_dis_video: Losses = {}
 
         nif = tp.num_input_frames
         if tp.use_image_discriminator:
-            real, _ = fold_time(batch["video"][:, nif:])
-            fake, _ = fold_time(out["generated"])
-            d_real, d_fake, g_gan, fm = self._gan_losses(self.netd_image,
-                                                         real, fake)
+            with trace.span("c2m.train.netd_image"):
+                real, _ = fold_time(batch["video"][:, nif:])
+                fake, _ = fold_time(out["generated"])
+                d_real, d_fake, g_gan, fm = self._gan_losses(
+                    self.netd_image, real, fake)
             loss_dict["g_gan_image"] = g_gan
             loss_dict["feature_matching_image"] = fm
             loss_dis_image = {"d_real": d_real, "d_fake": d_fake}
@@ -111,11 +114,12 @@ class C2MTrainModel(nn.Module):
             def chan_concat(v):        # [B, T, H, W, C] -> [B, H, W, T*C]
                 return v.permute(0, 2, 3, 1, 4).reshape(
                     v.shape[0], v.shape[2], v.shape[3], -1)
-            real = chan_concat(batch["video"])
-            fake = torch.cat([chan_concat(batch["video"][:, :nif]),
-                              chan_concat(out["generated"])], dim=-1)
-            d_real, d_fake, g_gan, fm = self._gan_losses(self.netd_video,
-                                                         real, fake)
+            with trace.span("c2m.train.netd_video"):
+                real = chan_concat(batch["video"])
+                fake = torch.cat([chan_concat(batch["video"][:, :nif]),
+                                  chan_concat(out["generated"])], dim=-1)
+                d_real, d_fake, g_gan, fm = self._gan_losses(
+                    self.netd_video, real, fake)
             loss_dict["g_gan_video"] = g_gan
             loss_dict["feature_matching_video"] = fm
             loss_dis_video = {"d_real": d_real, "d_fake": d_fake}

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.config import Config
 from c2m_tpu_torch.models.sparse_motion import sample_click_indices
 from c2m_tpu_torch.parallel import mesh
@@ -76,25 +77,36 @@ def make_train_step(cfg: Config) -> Callable:
         Updates ``state`` in place (parameters, running statistics, spectral
         ``u``, optimizer, scheduler, step count) and returns the metrics as
         detached scalars. ``eps`` / ``click_mask`` replace the draws from
-        ``state.generator`` (:func:`global_draws`)."""
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        if eps is None and click_mask is None:
-            eps, click_mask = global_draws(cfg, state.generator,
-                                           batch["num_real_nodes"],
-                                           batch["node_mask"].shape[1])
-        _, loss_dict, ldi, ldv = state.model(batch, eps, click_mask,
-                                             state.generator)
-        total, metrics = combined_loss(cfg, loss_dict, ldi, ldv)
-        total.backward()
-        if mesh.is_live():
-            mesh.all_reduce_gradients(
-                p for group in grouped_parameters(state.model).values()
-                for p in group)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return mesh.mean_metrics({k: v.detach() for k, v in metrics.items()})
+        ``state.generator`` (:func:`global_draws`). Spans (``trace``):
+        ``c2m.train.step`` around the call, inside it ``draws`` (when it
+        draws), ``forward`` (the model and the combined loss),
+        ``backward``, ``all_reduce`` (under a process group) and
+        ``optimizer`` (Adam and the schedulers)."""
+        with trace.span("c2m.train.step"):
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            if eps is None and click_mask is None:
+                with trace.span("c2m.train.draws"):
+                    eps, click_mask = global_draws(
+                        cfg, state.generator, batch["num_real_nodes"],
+                        batch["node_mask"].shape[1])
+            with trace.span("c2m.train.forward"):
+                _, loss_dict, ldi, ldv = state.model(batch, eps, click_mask,
+                                                     state.generator)
+                total, metrics = combined_loss(cfg, loss_dict, ldi, ldv)
+            with trace.span("c2m.train.backward"):
+                total.backward()
+            if mesh.is_live():
+                with trace.span("c2m.train.all_reduce"):
+                    mesh.all_reduce_gradients(
+                        p for group in grouped_parameters(state.model).values()
+                        for p in group)
+            with trace.span("c2m.train.optimizer"):
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            return mesh.mean_metrics({k: v.detach()
+                                      for k, v in metrics.items()})
 
     return train_step
 
