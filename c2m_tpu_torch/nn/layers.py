@@ -1,9 +1,13 @@
 """Conv/norm building blocks (port of ``c2m_tpu/nn/layers.py``).
 
 Every module takes and returns channels-last tensors (``[B, H, W, C]`` or
-``[B, T, H, W, C]``) as the JAX package does. Inside, a conv permutes its
-input to PyTorch's NCHW view (a view, no copy) and runs
-``torch.nn.functional.conv2d``/``conv3d`` (cuDNN on the card).
+``[B, T, H, W, C]``) as the JAX package does. Inside, a conv takes one of
+two routes (:func:`conv_route`): ``cudnn`` pads, permutes its input to
+PyTorch's NCHW view (a view, no copy) and runs
+``torch.nn.functional.conv2d``/``conv3d`` (cuDNN on the card); ``patch``,
+only for float32 inference on the card with TF32 off, gathers the padded
+patches with a hand-written kernel and multiplies them by the weight in
+one cuBLAS float32 GEMM (:func:`patch_conv`).
 
 Norms follow ``module.training``: batch statistics (and running-stat
 updates) in train mode, running statistics in eval mode. Padding is explicit so that reflect padding can fall back to edge padding on
@@ -23,12 +27,14 @@ in the JAX variable tree (``utils/convert.py`` walks it).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from c2m_tpu_torch.ops.hopper import patches_kernel
 from c2m_tpu_torch.ops.warp import resize_bilinear
 from c2m_tpu_torch.parallel import mesh
 
@@ -71,6 +77,77 @@ def _operands(mod, x: torch.Tensor):
     return x.to(dt), mod.weight.to(dt), bias
 
 
+# Bytes of patch matrix one chunk of rows may take. The widest conv of the
+# journal and long-horizon models (K = 27 x 528) still gets 37k rows a
+# chunk, a GEMM far past cuBLAS's tile count; the scratch is reused chunk
+# after chunk and never exceeds this.
+PATCH_BYTES = 2 << 30
+
+# Conv and Conv3d calls by route since the process started (tests and
+# chip_smoke.py read the share the patch route takes).
+CONV_CALLS = {"patch": 0, "cudnn": 0}
+
+
+def conv_route(device_type: str, dtype: torch.dtype, inference: bool,
+               cudnn_tf32: bool, matmul_tf32: bool) -> str:
+    """How a Conv or Conv3d computes, from what the call can observe:
+    ``patch`` (:func:`patch_conv`) for operands on the card in float32,
+    under ``torch.inference_mode`` (not ``no_grad``: the train step's VGG
+    pass runs under ``no_grad`` near the step's memory peak, where the
+    patch scratch would count) and with TF32 off for both cuDNN and cuBLAS
+    (so that the GEMM is exactly as precise as the conv it replaces);
+    ``cudnn`` (pad_spatial + F.conv2d / conv3d) for every other call: the
+    CPU, bfloat16, TF32, training and ``no_grad``. No width rule: on an H100 the patch route read faster at
+    every conv of the journal model, down to 1 output channel (PERF.md
+    section 6)."""
+    if (device_type == "cuda" and dtype == torch.float32 and inference
+            and not cudnn_tf32 and not matmul_tf32):
+        return "patch"
+    return "cudnn"
+
+
+def _take_patch(mod, x: torch.Tensor) -> bool:
+    """:func:`conv_route` for this call of ``mod``, counted."""
+    route = conv_route(x.device.type, mod.compute_dtype or mod.weight.dtype,
+                       torch.is_inference_mode_enabled(),
+                       torch.backends.cudnn.allow_tf32,
+                       torch.backends.cuda.matmul.allow_tf32)
+    CONV_CALLS[route] += 1
+    return route == "patch"
+
+
+def patch_conv(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], stride: Sequence[int],
+               pad: Sequence[int], mode: str) -> torch.Tensor:
+    """A channels-last conv as patches x weight: x [B, (T,) H, W, C], weight
+    [F, C, *kernel] -> [B, *out, F] contiguous. Output rows are cut into
+    chunks whose patch matrix fits ``PATCH_BYTES``; per chunk the kernel
+    gathers the padded patches (``ops/hopper/patches_kernel``) and one GEMM
+    writes the chunk's rows of the output, bias added. The weight is
+    permuted once to the patches' (taps, C) order."""
+    kernel = tuple(weight.shape[2:])
+    x = x.contiguous()
+    b, *spatial, _ = x.shape
+    outs = [patches_kernel.out_size(n, k, s, p)
+            for n, k, s, p in zip(spatial, kernel, stride, pad)]
+    rows = b * math.prod(outs)
+    features = weight.shape[0]
+    w = weight.permute(0, *range(2, weight.dim()), 1).reshape(features, -1)
+    y = torch.empty(rows, features, dtype=x.dtype, device=x.device)
+    k_all = w.shape[1]
+    chunk = max(1, min(rows, PATCH_BYTES // (k_all * x.element_size())))
+    scratch = torch.empty(chunk, k_all, dtype=x.dtype, device=x.device)
+    for row0 in range(0, rows, chunk):
+        n = min(chunk, rows - row0)
+        patches = patches_kernel.conv_patches(x, kernel, stride, pad, mode,
+                                              row0, n, out=scratch[:n])
+        if bias is None:
+            torch.mm(patches, w.t(), out=y[row0:row0 + n])
+        else:
+            torch.addmm(bias, patches, w.t(), out=y[row0:row0 + n])
+    return y.view(b, *outs, features)
+
+
 class Conv(nn.Conv2d):
     """2D conv on NHWC with explicit reflect/replicate/zeros padding.
     Parameters: ``weight`` [F, C, kh, kw], ``bias`` [F] unless ``use_bias``
@@ -87,6 +164,9 @@ class Conv(nn.Conv2d):
         self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _take_patch(self, x):
+            return patch_conv(*_operands(self, x), self.stride, self.pad,
+                              self.pad_mode)
         x = pad_spatial(x, [(p, p) for p in self.pad], self.pad_mode)
         x, weight, bias = _operands(self, x)
         y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, self.stride)
@@ -107,6 +187,9 @@ class Conv3d(nn.Conv3d):
         self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _take_patch(self, x):
+            return patch_conv(*_operands(self, x), self.stride, self.pad,
+                              self.pad_mode)
         x = pad_spatial(x, [(p, p) for p in self.pad], self.pad_mode)
         x, weight, bias = _operands(self, x)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias, self.stride)

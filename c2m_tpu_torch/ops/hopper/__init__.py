@@ -69,6 +69,10 @@ _SIGNATURES = {
     # a, b, out, B, H, W, C, max_displacement, stride, stream
     "c2m_correlation_f32": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
     "c2m_correlation_bf16": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
+    # x, out, B, T, H, W, C, kt, kh, kw, st, sh, sw, pt, ph, pw, mt, mh, mw,
+    # row0, rows, width, wide, stream
+    "c2m_conv_patches_f32": [_P, _P] + [_L] * 14 + [_I] * 3 + [_L, _L, _I, _I,
+                                                               _P],
 }
 
 
@@ -188,8 +192,8 @@ def all_kernels():
     """Every hand-written kernel's ``Kernel`` record (name, source, the TPU
     kernel it replaces, its launch count)."""
     from c2m_tpu_torch.ops.hopper import (correlation_kernel, maskwarp_banded,
-                                          maskwarp_kernel, splat_kernel,
-                                          warp_kernels)
+                                          maskwarp_kernel, patches_kernel,
+                                          splat_kernel, warp_kernels)
     return (warp_kernels.KERNELS + maskwarp_kernel.KERNELS
             + maskwarp_banded.KERNELS + splat_kernel.KERNELS
-            + correlation_kernel.KERNELS)
+            + correlation_kernel.KERNELS + patches_kernel.KERNELS)

@@ -161,7 +161,19 @@ Phases (any failure raises and the script exits non-zero):
      (one K2 and two K4 launches a clip, counted in its process), its tree
      held to the same tool's run on the CPU (other files byte for byte,
      flows and occlusions within phase 10's gates), then eval_torch.py on the converted job dir and train_torch.py for 2 steps,
-     both reading that tree from disk; upfirdn2d and bias_act card vs CPU.
+     both reading that tree from disk; upfirdn2d and bias_act card vs CPU;
+ 18. the patch route of the float32 convolutions (nn/layers.conv_route) at
+     the journal config in float32, TF32 off: a ServingModel with buckets
+     1 and 12 answers a request of each size with every Conv / Conv3d call
+     recorded (its route, the share the patch route takes, the gather's
+     launches, which a 12-clip request must make); at each conv shape of
+     those requests the gather kernel against its plain version (bit for
+     bit, first and last chunk), the patch conv against the cuDNN conv and
+     both against float64 (max error over the largest output), and device
+     times by kernel of both routes (cuDNN's top kernel, the gather, the
+     GEMM) beside the gather's bound and the GFLOP; a 12-clip inference
+     on both routes in turns (inference_mode / no_grad); a float32 train
+     step, which must launch the gather 0 times.
 With --profile, torch.profiler splits one warm train step and one warm
 request of each config, the full-frame Panoptic-DeepLab and one track()
 call by operator and by kernel (printed).
@@ -330,6 +342,14 @@ def kernel_split(fn, names: dict, calls: int = 5) -> dict:
     """Device milliseconds per call of each kernel ``fn`` launches, by a
     substring of its name (``names``: label -> substring), from
     torch.profiler over ``calls`` calls after one warm-up."""
+    by_kernel = device_kernels(fn, calls)
+    return {label: sum(ms for key, ms in by_kernel.items() if part in key)
+            for label, part in names.items()}
+
+
+def device_kernels(fn, calls: int = 3) -> dict:
+    """Device milliseconds per call of each kernel ``fn`` launches, by name,
+    from torch.profiler over ``calls`` calls after one warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -339,14 +359,10 @@ def kernel_split(fn, names: dict, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {label: 0.0 for label in names}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        for label, part in names.items():
-            if part in e.key:
-                out[label] += e.self_device_time_total / 1e3 / calls
-    return out
+    return {e.key: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3488,6 +3504,309 @@ def phase_tools(cfg, dev, smi: str) -> dict:
     return {"tools_serving": served, "tools_dataset": made}
 
 
+# -- phase 18: the patch route of the float32 convolutions --------------------
+
+# the patch conv against the cuDNN conv, float32 with TF32 off, at every
+# serving shape: max |diff| over the largest |output|. Two float32 sums of
+# K <= 14256 products in other orders (cuDNN's FFT rounds more than a
+# direct sum; both read under 1e-5 against float64 at these shapes)
+TOL_PATCH_CONV = 1e-4
+
+
+def record_convs(model):
+    """Forward pre-hooks on every Conv / Conv3d of ``model`` appending
+    (module name, module, input shape) to the returned list; -> (list,
+    handles)."""
+    from c2m_tpu_torch.nn.layers import Conv, Conv3d
+    calls, handles = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, (Conv, Conv3d)):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, args, name=name: calls.append(
+                    (name, mod, tuple(args[0].shape)))))
+    return calls, handles
+
+
+def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
+    """One serving conv shape: the gather kernel vs its plain version, the
+    patch conv vs cuDNN vs float64, device times by kernel of both routes."""
+    from c2m_tpu_torch.nn import layers
+    from c2m_tpu_torch.ops.hopper import patches_kernel as pk
+    g = torch.Generator(device=dev).manual_seed(SEED + len(shape))
+    x = torch.randn(shape, generator=g, device=dev)
+    kernel, stride, pad = tuple(mod.kernel_size), mod.stride, mod.pad
+    b, *spatial, c = shape
+    outs = [pk.out_size(n, k, s_, p) for n, k, s_, p in
+            zip(spatial, kernel, stride, pad)]
+    n_rows, k_all = b * int(np.prod(outs)), c * int(np.prod(kernel))
+    chunk = min(n_rows, max(1, layers.PATCH_BYTES // (4 * k_all)))
+    equal = True
+    for row0 in sorted({0, n_rows - chunk}):
+        got = pk.conv_patches(x, kernel, stride, pad, mod.pad_mode, row0,
+                              chunk)
+        want = pk.conv_patches_plain(x, kernel, stride, pad, mod.pad_mode,
+                                     row0, chunk)
+        equal = equal and torch.equal(got, want)
+        del got, want
+
+    def plain_gather():
+        for row0 in range(0, n_rows, chunk):
+            pk.conv_patches_plain(x, kernel, stride, pad, mod.pad_mode, row0,
+                                  min(chunk, n_rows - row0))
+
+    plain_ms = time_ms(plain_gather, reps=3, warmup=1)
+    with torch.no_grad():
+        cudnn = mod(x)                              # the cudnn route
+        xp = layers.pad_spatial(x.double(), [(p, p) for p in pad],
+                                mod.pad_mode)
+        conv = (torch.nn.functional.conv2d if len(kernel) == 2
+                else torch.nn.functional.conv3d)
+        exact = conv(xp.movedim(-1, 1), mod.weight.double(),
+                     None if mod.bias is None else mod.bias.double(),
+                     stride).movedim(1, -1)
+        del xp
+
+    def run_patch():
+        with torch.inference_mode():
+            return layers.patch_conv(*layers._operands(mod, x), stride, pad,
+                                     mod.pad_mode)
+
+    patch = run_patch()
+    scale = float(exact.abs().max())
+    errs = {"patch_vs_cudnn": float((patch - cudnn).abs().max()) / scale,
+            "patch_vs_f64": float((patch.double() - exact).abs().max())
+            / scale,
+            "cudnn_vs_f64": float((cudnn.double() - exact).abs().max())
+            / scale}
+    del patch, cudnn, exact
+
+    def run_cudnn():
+        with torch.no_grad():
+            mod(x)
+
+    def ten(fn):
+        """CUDA events around 10 calls in a row: the device's time where it
+        is the bottleneck, as at every shape that matters."""
+        return time_ms(lambda: [fn() for _ in range(10)], reps=3,
+                       warmup=1) / 10
+
+    # the patch route's two parts on the device alone, each replayed from a
+    # CUDA graph: every chunk's gather into the scratch, and every chunk's
+    # GEMM into the output (the weight permuted once outside, as patch_conv
+    # does before its loop)
+    _, weight, bias = (t if t is None else t.detach()
+                       for t in layers._operands(mod, x))
+    w = weight.permute(0, *range(2, weight.dim()), 1).reshape(
+        mod.out_channels, -1)
+    scratch = torch.empty(chunk, k_all, device=dev)
+    y = torch.empty(n_rows, mod.out_channels, device=dev)
+    spans = [(row0, min(chunk, n_rows - row0))
+             for row0 in range(0, n_rows, chunk)]
+
+    def gather_all():
+        for row0, n in spans:
+            pk.conv_patches(x, kernel, stride, pad, mod.pad_mode, row0, n,
+                            out=scratch[:n])
+
+    def gemm_all():
+        for row0, n in spans:
+            if bias is None:
+                torch.mm(scratch[:n], w.t(), out=y[row0:row0 + n])
+            else:
+                torch.addmm(bias, scratch[:n], w.t(), out=y[row0:row0 + n])
+
+    cudnn_ms, patch_ms = ten(run_cudnn), ten(run_patch)
+    gather_ms = device_ms(gather_all, launches=10, reps=3)
+    gemm_ms = device_ms(gemm_all, launches=10, reps=3)
+    del scratch, y
+
+    # the kernels' names from torch.profiler, which now and then records no
+    # kernel of a call: taken up to three times, then None (never a 0)
+    def kernels(fn):
+        for _ in range(3):
+            found = device_kernels(fn)
+            if found:
+                return found
+        return None
+
+    k_cudnn, k_patch = kernels(run_cudnn), kernels(run_patch)
+    top = (max(k_cudnn.items(), key=lambda kv: kv[1]) if k_cudnn
+           else (None, None))
+    gemms = {k: v for k, v in (k_patch or {}).items()
+             if "patches_kernel" not in k}
+    top_patch = (max(gemms.items(), key=lambda kv: kv[1]) if gemms
+                 else (None, None))
+    gflop = 2 * n_rows * k_all * mod.out_channels / 1e9
+    width, wide = pk.patches_route(shape, n_rows)
+    row = {
+        "module": name, "bucket": bucket, "input": list(shape),
+        "kernel": list(kernel), "stride": list(stride), "pad": list(pad),
+        "mode": mod.pad_mode, "features": mod.out_channels, "rows": n_rows,
+        "K": k_all, "chunks": len(spans),
+        "gflop": gflop,
+        "layout": {4: "vec4", 2: "vec2", 1: "scalar"}[width]
+        + ("_64" if wide else ""),
+        "gather_equal_plain": equal, **errs,
+        "cudnn_ms": cudnn_ms,
+        "cudnn_top_kernel": top[0] and top[0][:80], "cudnn_top_ms": top[1],
+        "patch_ms": patch_ms,
+        "gather_ms": gather_ms, "gather_plain_ms": plain_ms,
+        "gemm_ms": gemm_ms,
+        "gemm_top_kernel": top_patch[0] and top_patch[0][:80],
+        "patch_kernels": k_patch and {k[:80]: v for k, v in k_patch.items()},
+        "cudnn_tflops": gflop / cudnn_ms,
+        "patch_tflops": gflop / patch_ms,
+        "gemm_tflops": gflop / gemm_ms,
+        **{f"gather_{k}": v for k, v in bound(
+            (n_rows * k_all + x.numel()) * 4, 0).items()}}
+    log(f"  [{bucket:2d}] {name[:44]:44s} {list(shape)} k{list(kernel)} "
+        f"s{list(stride)} F{mod.out_channels}: {gflop:7.2f} GFLOP; cuDNN "
+        f"{cudnn_ms:7.3f} ms ({row['cudnn_tflops']:5.2f} TFLOP/s, top "
+        f"{str(top[0])[:40]} {top[1]}); patch {patch_ms:7.3f} ms; gather "
+        f"{gather_ms:.3f} (bound {row['gather_bound_ms']:.3f}, plain "
+        f"{plain_ms:.3f}), GEMM "
+        f"{gemm_ms:.3f} ({row['gemm_tflops']:5.2f} TFLOP/s, "
+        f"{str(top_patch[0])[:32]}); err patch-cuDNN {errs['patch_vs_cudnn']:.2e},"
+        f" vs f64 patch {errs['patch_vs_f64']:.2e} cuDNN "
+        f"{errs['cudnn_vs_f64']:.2e}; gather == plain {equal}")
+    check(equal, f"{name} {shape}: the gather kernel differs from its plain "
+          f"version")
+    check(gather_ms > 0 and gemm_ms > 0,
+          f"{name} {shape}: gather {gather_ms} ms, GEMM {gemm_ms} ms")
+    check(errs["patch_vs_cudnn"] <= TOL_PATCH_CONV,
+          f"{name} {shape}: patch conv vs cuDNN {errs['patch_vs_cudnn']}")
+    return row
+
+
+def route_ab(model, request, dev):
+    """One request's inference on the patch route (inference_mode) and the
+    cuDNN route (no_grad) in turns, float32 with TF32 off, same inputs. ->
+    (milliseconds of each turn by route, each floating output's gap as
+    perfbench/compare.py defines it: the worst row's mean |diff| over the
+    cuDNN route's mean magnitude)."""
+    batch, z, click = request
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    zt, ct = torch.as_tensor(z, device=dev), torch.as_tensor(click, device=dev)
+    outs, times = {}, {"patch": [], "cudnn": []}
+    with full_float32():
+        for turn in ("patch", "cudnn", "cudnn", "patch") * 3:
+            ctx = (torch.inference_mode() if turn == "patch"
+                   else torch.no_grad())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                o = model.inference(bt, zt, ct, False)
+            torch.cuda.synchronize()
+            times[turn].append((time.perf_counter() - t0) * 1e3)
+            outs[turn] = {k: v.double() for k, v in o.items()
+                          if v.is_floating_point()}
+    gaps = {}
+    for key, ref in outs["cudnn"].items():
+        rows_gap = (outs["patch"][key] - ref).abs().flatten(1).mean(1)
+        gaps[key] = float(rows_gap.max() / ref.abs().mean().clamp_min(1e-30))
+    log(f"  {z.shape[0]}-clip inference, patch / cuDNN route in turns: "
+        f"{statistics.median(times['patch']):.1f} / "
+        f"{statistics.median(times['cudnn']):.1f} ms (medians of 6; "
+        f"{[round(t, 1) for t in times['patch']]} / "
+        f"{[round(t, 1) for t in times['cudnn']]}); worst row's gap "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(gaps.items())))
+    return times, gaps
+
+
+def phase_patch_conv(cfg, dev):
+    """Phase 18 (module docstring). -> (the gather's kernel row, the launch
+    counts of the served requests)."""
+    from c2m_tpu_torch.models.c2m import DTYPES
+    from c2m_tpu_torch.nn import layers
+    from c2m_tpu_torch.ops.hopper import patches_kernel as pk
+    from c2m_tpu_torch.serving import ServingModel
+    from c2m_tpu_torch.train.state import create_train_state
+    from c2m_tpu_torch.train.step import make_train_step
+    t_phase = time.perf_counter()
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.train_params.dtype = "float32"
+    log("[phase 18] the patch route of the float32 convolutions at the "
+        "journal config, TF32 off: route shares, the gather kernel, patch "
+        "vs cuDNN per shape, a request on both routes, a train step")
+    model = build_model(cfg32).to(dev).use_compute_dtype(
+        DTYPES[cfg32.train_params.dtype])
+    server = ServingModel(model, (1, BUCKET), use_gt_eval=False)
+    reqs = requests(cfg32, dev, sizes=(1, BUCKET))
+    calls, handles = record_convs(model)
+    shares, by_bucket = {}, {}
+    reset_launches()
+    with full_float32():
+        for batch, z, click in reqs:
+            bs = z.shape[0]
+            server(batch, z, click)                     # warm
+            torch.cuda.synchronize()
+            calls.clear()
+            before, launches = dict(layers.CONV_CALLS), \
+                pk.CONV_PATCHES.launches
+            server(batch, z, click)
+            torch.cuda.synchronize()
+            routed = {k: layers.CONV_CALLS[k] - before[k] for k in before}
+            shares[bs] = {**routed, "gather_launches":
+                          pk.CONV_PATCHES.launches - launches,
+                          "patch_share": routed["patch"] / max(
+                              1, routed["patch"] + routed["cudnn"])}
+            by_bucket[bs] = list(calls)
+            log(f"  request of {bs} clip(s): {len(calls)} conv calls, "
+                f"routes {routed}, patch share {shares[bs]['patch_share']:.3f}"
+                f", gather launches {shares[bs]['gather_launches']}")
+    for h in handles:
+        h.remove()
+    counts = read_launches()
+    check(all(v["cudnn"] == 0 and v["patch"] > 0 for v in shares.values())
+          and shares[BUCKET]["gather_launches"] > 0,
+          f"a float32 request's convs did not all take the patch route: "
+          f"{shares}")
+
+    rows = []
+    with full_float32():
+        for bucket, recorded in sorted(by_bucket.items()):
+            # one row per conv geometry and input shape, with its calls
+            calls = {}
+            for name, mod, shape in recorded:
+                key = (mod.in_channels, mod.out_channels,
+                       tuple(mod.kernel_size), mod.stride, mod.pad,
+                       mod.pad_mode, shape)
+                calls.setdefault(key, [name, mod, shape, 0])[3] += 1
+            for name, mod, shape, n in calls.values():
+                rows.append({**patch_shape_row(name, mod, shape, bucket, dev),
+                             "calls": n})
+                release_memory()
+            total = {k: sum(r[k] * r["calls"] for r in rows
+                            if r["bucket"] == bucket)
+                     for k in ("gflop", "cudnn_ms", "patch_ms", "gather_ms")}
+            log(f"  bucket {bucket}: the request's convs {total['gflop']:.1f}"
+                f" GFLOP; all on cuDNN {total['cudnn_ms']:.2f} ms, all on "
+                f"the patch route {total['patch_ms']:.2f} ms (gather "
+                f"{total['gather_ms']:.2f})")
+
+    times, gaps = route_ab(model, reqs[-1], dev)
+
+    # a float32 train step never takes the patch route
+    state = create_train_state(cfg32, seed=SEED, device=dev)
+    batch = train_batch(cfg32, dev, cfg32.train_params.batch_size, 11)
+    before, launches = dict(layers.CONV_CALLS), pk.CONV_PATCHES.launches
+    with full_float32():
+        make_train_step(cfg32)(state, batch)
+    torch.cuda.synchronize()
+    step_routes = {k: layers.CONV_CALLS[k] - before[k] for k in before}
+    log(f"  a float32 train step (TF32 off): conv routes {step_routes}, "
+        f"gather launches {pk.CONV_PATCHES.launches - launches}")
+    check(pk.CONV_PATCHES.launches == launches and step_routes["patch"] == 0,
+          "the train step launched the gather")
+    del state
+    release_memory()
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    row = {"shapes": rows, "requests": {str(k): v for k, v in shares.items()},
+           "inference_ms": times, "inference_gaps": gaps,
+           "train_step_routes": step_routes}
+    return row, counts
+
+
 def profile_window(name: str, fn, warm_ms: float) -> None:
     """torch.profiler over one warm call of fn: device time by operator and
     by kernel, launches and idle share, printed. The profiler slows the host, so the idle share is also
@@ -3580,6 +3899,7 @@ def main() -> int:
     counts["metric_eval"] = phase_metric_nets(cfg, dev, smi, eval_ms)
     counts["preprocess"] = phase_preprocess(cfg, dev, smi, profile)
     counts.update(phase_tools(cfg, dev, smi))
+    rows["conv_patches"], counts["patch_conv"] = phase_patch_conv(cfg, dev)
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")
