@@ -15,6 +15,13 @@ blocks and decodes to RGB. Two variants, as in the JAX package:
 Both warp the full-resolution image in float32 (K1's ``pixel`` route),
 whatever dtype the conv stacks compute in. Child names are the JAX
 variable tree's keys, so ``utils/convert`` carries every variant.
+
+Spans of the SPADE path (``trace``, under a profiler only):
+``c2m.model.flow_embedder`` around the embedder, ``c2m.model.spade``
+around the decoder's SPADE blocks and their resizes, and
+``c2m.model.spade.norm`` around each normalise-and-modulate, which counts
+under ``"bytes"`` the least bytes that pass moves: x, gamma and beta read
+once and the output written once.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.config import FlowEmbedderParams, GeneratorParams
 from c2m_tpu_torch.nn.layers import (Conv, DownBlock2d, InstanceNorm,
                                      ResidualBlock, SameBlock2d, UpBlock2d,
@@ -135,11 +143,17 @@ class SpatiallyAdaptiveNorm(nn.Module):
                                "reflect")
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        out = self.norm(x)
+        # the condition's convolutions first, so that the span holds the
+        # bandwidth-bound normalise-and-modulate alone (the same values as
+        # normalising first: neither reads the other's result)
         if cond.shape[1:3] != x.shape[1:3]:
             cond = resize_nearest(cond, x.shape[1:3])
         gamma, beta = self.gamma_beta(self.mlp(cond)).chunk(2, dim=-1)
-        return out * (1.0 + gamma) + beta
+        with trace.span("c2m.model.spade.norm"):
+            out = self.norm(x) * (1.0 + gamma) + beta
+            trace.count("bytes", sum(t.numel() * t.element_size()
+                                     for t in (x, gamma, beta, out)))
+        return out
 
 
 class ResidualSpadeBlock(nn.Module):
@@ -230,9 +244,10 @@ class OcclusionAwareGenerator(nn.Module):
             # JAX package warps it under bfloat16 conv stacks
             img_warp = deform_input(first_frame[::frames], flow, frames)
         if p.use_spade:
-            cond = self.flowembedder(torch.cat(
-                [img_warp, flow.to(img_warp.dtype),
-                 occlusion.to(img_warp.dtype)], dim=-1))
+            with trace.span("c2m.model.flow_embedder"):
+                cond = self.flowembedder(torch.cat(
+                    [img_warp, flow.to(img_warp.dtype),
+                     occlusion.to(img_warp.dtype)], dim=-1))
 
         out = self.first(first_frame)
         for i in range(nd):
@@ -252,16 +267,18 @@ class OcclusionAwareGenerator(nn.Module):
                                   align_corners=False)
             out = self.pre_decode(torch.cat([out, xw * occ], dim=-1))
 
-        for i in range(nd):
-            block = getattr(self, f"up_{i}")
-            if p.use_spade:
-                c = cond[min(nd - i, len(cond) - 1)]
-                out = resize_bilinear(out, c.shape[1:3], align_corners=False)
-                out = block(out, c)
-                h, w = out.shape[1:3]
-                out = resize_bilinear(out, (h * 2, w * 2),
-                                      align_corners=False)
-            else:
-                out = block(out)
+        if p.use_spade:
+            with trace.span("c2m.model.spade"):
+                for i in range(nd):
+                    c = cond[min(nd - i, len(cond) - 1)]
+                    out = resize_bilinear(out, c.shape[1:3],
+                                          align_corners=False)
+                    out = getattr(self, f"up_{i}")(out, c)
+                    h, w = out.shape[1:3]
+                    out = resize_bilinear(out, (h * 2, w * 2),
+                                          align_corners=False)
+        else:
+            for i in range(nd):
+                out = getattr(self, f"up_{i}")(out)
         out = resize_bilinear(out, first_frame.shape[1:3], align_corners=False)
         return torch.sigmoid(self.final(out).float())

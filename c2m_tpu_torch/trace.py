@@ -19,6 +19,10 @@ Under a profiler each span
 - where CUDA is initialised, records a timing event on the current stream
   at its entry and at its exit.
 
+:func:`count` adds a counted value (bytes a pass must move, say) to the
+innermost span open on the calling thread; with no span open, as outside
+a profiler, it does nothing.
+
 :func:`records` resolves the events once the work is done, so nothing
 synchronises while spans are recorded. A record's ``device_ms`` is the
 current stream's interval between the span's two events: the time from
@@ -42,7 +46,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -61,6 +65,7 @@ class Span:
     start_ns: int                 # host, time.perf_counter_ns
     end_ns: int
     device_ms: Optional[float]    # None where CUDA is not in use
+    counts: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def host_ms(self) -> float:
@@ -70,12 +75,13 @@ class Span:
 class _Open:
     """A span while it runs (under a profiler)."""
     __slots__ = ("recorder", "name", "id", "parent", "unit", "function",
-                 "events", "start_ns", "end_ns", "device_ms")
+                 "events", "start_ns", "end_ns", "device_ms", "counts")
 
     def __init__(self, recorder: "Recorder", name: str):
         self.recorder, self.name = recorder, name
         self.id = next(recorder._ids)
         self.events = None
+        self.counts: Dict[str, float] = {}
         self.end_ns = self.device_ms = None
 
     def __enter__(self):
@@ -108,7 +114,8 @@ class _Open:
             self.device_ms = self.events[0].elapsed_time(self.events[1])
             self.events = None
         return Span(self.name, self.id, self.parent, self.unit,
-                    self.start_ns, self.end_ns, self.device_ms)
+                    self.start_ns, self.end_ns, self.device_ms,
+                    dict(self.counts))
 
 
 class Recorder:
@@ -141,6 +148,14 @@ class Recorder:
             return _OFF
         return _Open(self, name)
 
+    def count(self, key: str, value: float) -> None:
+        """Adds ``value`` to ``key`` of the innermost span open on this
+        thread; nothing when none is open."""
+        stack = self._stack()
+        if stack:
+            counts = stack[-1].counts
+            counts[key] = counts.get(key, 0) + value
+
     def records(self) -> List[Span]:
         """Every closed span in the buffer, oldest first, with its device
         interval resolved (this waits for the spans' work to finish)."""
@@ -158,6 +173,12 @@ _RECORDER = Recorder()
 def span(name: str):
     """A span named ``name`` in the process's buffer (module docstring)."""
     return _RECORDER.span(name)
+
+
+def count(key: str, value: float) -> None:
+    """Adds ``value`` to ``key`` of the innermost span open on the calling
+    thread (module docstring)."""
+    _RECORDER.count(key, value)
 
 
 def records() -> List[Span]:
