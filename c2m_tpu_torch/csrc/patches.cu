@@ -86,9 +86,9 @@ __device__ __forceinline__ long long quot(const Div& v, long long n) {
 }
 
 // one spatial axis: input size, stride, pad, mode (0 zeros, 1 edge,
-// 2 reflect)
+// 2 reflect), kernel size and output size
 struct Axis {
-  int n, s, p, mode;
+  int n, s, p, mode, k, out;
 };
 
 // the input coordinate i (tap offset added) as the axis's padding reads
@@ -200,8 +200,195 @@ bool make_axis(long long n, long long k, long long s, long long p, int mode,
       n + 2 * p < k || n + 2 * p > INT32_LIMIT)
     return false;
   *out = (n + 2 * p - k) / s + 1;
-  *a = Axis{(int)n, (int)s, (int)p, mode};
+  *a = Axis{(int)n, (int)s, (int)p, mode, (int)k, (int)*out};
   return true;
+}
+
+// -- the adjoint of the gather: the input gradient of a chunk --------------
+//
+// The input gradient of the same convolution: grad_patches = grad_y x
+// weight is one cuBLAS float32 GEMM (nn/layers.PatchConv, outside any
+// kernel), and this kernel adds each element of that chunk of rows back
+// into the input element the gather read it from, by the gather's own
+// index rule, so that it is the exact adjoint of pad_spatial + unfold:
+// zeros (a tap outside the input is dropped), edge (clamped: the border
+// pixel takes every tap that clamped onto it) and reflect (folded: 1..p
+// take the taps at -1..-p, n-1-p..n-2 those past the end).
+//
+// Replaces no TPU kernel: the JAX package differentiates its convolutions
+// through XLA, and the port's train step gave them to cuDNN, whose float32
+// backward (TF32 off) ran as FFT convolutions (complex GEMMs of 32x32
+// tiles, region_transform, vector_fft) and implicit-GEMM dgrad engines:
+// about 90 ms of a 363 ms journal train step on an H100 with the forward's
+// FFT kernels beside them (the benchmark's ledger, cell journal.train).
+//
+// What bounds it: bytes. It reads grad_patches once (rows x K x 4 bytes)
+// and reads and writes the input gradient once; it does no arithmetic but
+// the sums and index arithmetic. Its design:
+// - gather form, no atomics: a thread owns an input element (4 or 2
+//   channels where C allows: 16- or 8-byte moves, as the gather) and walks
+//   the (output pixel, tap) pairs of the chunk that read it, at most
+//   ceil(k/s) per padded coordinate folding onto it per axis, summing in a
+//   fixed order, so the gradient is the same bit for bit from run to run;
+// - a block owns a run of one input line (b, t, h): the t and h axes'
+//   pairs are the same for the whole block and are listed once in shared
+//   memory; the w axis's are walked per thread from at most three ranges
+//   of padded coordinates (folded low, direct, folded high);
+// - one multiply-high division (Div) splits a thread's element into pixel
+//   and channel;
+// - reads: for C >= 32 a warp's threads that share a pixel read one
+//   contiguous run of C floats of a row (the tap's channels), 128 bytes or
+//   more.
+// A chunk may split an image: the first chunk writes every element of the
+// input gradient (0 where it has no pair), later chunks add into the lines
+// they can touch (the host bounds that run of lines: layers and
+// patches_kernel.adjoint_lines).
+
+constexpr int MAX_PAIRS = 64;   // (output, tap) pairs of one t or h coordinate
+
+// the padded coordinates u = j + p whose fold is input coordinate i, as
+// three ascending ranges [lo, hi], empty where lo > hi: folded from below
+// the input (edge: every u of the low pad at i = 0; reflect: u = p - i for
+// 1 <= i <= p), the direct u = i + p, folded from above it
+__device__ __forceinline__ void u_ranges(int i, const Axis& a, int* lo,
+                                         int* hi) {
+  lo[0] = 1;
+  hi[0] = 0;
+  if (a.mode == 1 && i == 0) {
+    lo[0] = 0;
+    hi[0] = a.p - 1;
+  } else if (a.mode == 2 && i >= 1 && i <= a.p) {
+    lo[0] = hi[0] = a.p - i;
+  }
+  lo[1] = hi[1] = i + a.p;
+  lo[2] = 1;
+  hi[2] = 0;
+  if (a.mode == 1 && i == a.n - 1) {
+    lo[2] = a.n + a.p;
+    hi[2] = a.n + 2 * a.p - 1;
+  } else if (a.mode == 2 && i >= a.n - 1 - a.p && i <= a.n - 2) {
+    lo[2] = hi[2] = 2 * (a.n - 1) - i + a.p;
+  }
+}
+
+// the first output coordinate whose window holds padded coordinate u
+__device__ __forceinline__ int first_out(int u, const Axis& a) {
+  const int x = u - a.k + 1;
+  return x <= 0 ? 0 : (x + a.s - 1) / a.s;
+}
+
+// every (output coordinate, tap) pair of axis a that reads input coordinate
+// i, in the order the sums take them; -> how many
+__device__ int axis_pairs(int i, const Axis& a, int2* pairs) {
+  int lo[3], hi[3];
+  u_ranges(i, a, lo, hi);
+  int n = 0;
+  for (int r = 0; r < 3; ++r)
+    for (int u = lo[r]; u <= hi[r]; ++u)
+      for (int o = first_out(u, a), last = min(a.out - 1, u / a.s); o <= last;
+           ++o)
+        pairs[n++] = make_int2(o, u - o * a.s);
+  return n;
+}
+
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float2& a, const float2& b) {
+  a.x += b.x;
+  a.y += b.y;
+}
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+struct AdjointGeometry {
+  Axis t, h, w;
+  int kv, cv;              // K and C in moved elements
+  Div c_div;               // cv
+};
+
+constexpr int ADJ_BLOCK_ELEMS = 2048;   // moved elements of a line a block owns
+
+// block (x, y): input line line0 + x, elements [y, y + 1) x ADJ_BLOCK_ELEMS
+// of it; out[line * W * cv + w * cv + c] (+)= sum over the chunk's pairs
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+    adjoint_kernel(const V* __restrict__ gp, V* __restrict__ out,
+                   AdjointGeometry g, long long line0, long long row0,
+                   unsigned rows, int accumulate) {
+  __shared__ int2 tp[MAX_PAIRS], hp[MAX_PAIRS];
+  __shared__ int nt, nh;
+  const long long line = line0 + blockIdx.x;
+  const int h = (int)(line % g.h.n);
+  const long long q = line / g.h.n;
+  const int t = (int)(q % g.t.n);
+  const long long b = q / g.t.n;
+  if (threadIdx.x == 0) nt = axis_pairs(t, g.t, tp);
+  if (threadIdx.x == 32) nh = axis_pairs(h, g.h, hp);
+  __syncthreads();
+  const int line_elems = g.w.n * g.cv;
+  const int e1 = min((int)(blockIdx.y + 1) * ADJ_BLOCK_ELEMS, line_elems);
+  V* dst = out + line * (long long)line_elems;
+  for (int e = blockIdx.y * ADJ_BLOCK_ELEMS + threadIdx.x; e < e1;
+       e += THREADS) {
+    const int w = (int)quot(g.c_div, (unsigned)e);
+    const int c = e - w * g.cv;
+    int lo[3], hi[3];
+    u_ranges(w, g.w, lo, hi);
+    V acc = zero<V>();
+    for (int it = 0; it < nt; ++it) {
+      const int2 pt = tp[it];
+      for (int ih = 0; ih < nh; ++ih) {
+        const int2 ph = hp[ih];
+        // the chunk's row of output (b, ot, oh, 0)
+        const long long rb =
+            ((b * g.t.out + pt.x) * g.h.out + ph.x) * (long long)g.w.out -
+            row0;
+        if (rb + g.w.out <= 0 || rb >= (long long)rows) continue;
+        const int tap = (pt.y * g.h.k + ph.y) * g.w.k;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          for (int u = lo[r]; u <= hi[r]; ++u)
+            for (int o = first_out(u, g.w), last = min(g.w.out - 1, u / g.w.s);
+                 o <= last; ++o) {
+              const long long row = rb + o;
+              if (row < 0 || row >= (long long)rows) continue;
+              add_to(acc, __ldg(gp + (unsigned)row * (unsigned)g.kv +
+                                (unsigned)((tap + u - o * g.w.s) * g.cv + c)));
+            }
+        }
+      }
+    }
+    if (accumulate) {
+      V old = dst[e];
+      add_to(old, acc);
+      acc = old;
+    }
+    dst[e] = acc;
+  }
+}
+
+template <typename V>
+int launch_adjoint(const void* gp, void* out, const AdjointGeometry& g,
+                   long long line0, long long lines, long long row0,
+                   long long rows, int accumulate, cudaStream_t stream) {
+  const long long line_elems = (long long)g.w.n * g.cv;
+  const dim3 grid((unsigned)lines,
+                  (unsigned)((line_elems + ADJ_BLOCK_ELEMS - 1) /
+                             ADJ_BLOCK_ELEMS));
+  adjoint_kernel<V><<<grid, THREADS, 0, stream>>>(
+      static_cast<const V*>(gp), static_cast<V*>(out), g, line0, row0,
+      (unsigned)rows, accumulate);
+  return (int)cudaGetLastError();
+}
+
+// the most pairs axis_pairs can list for one coordinate of axis a: at most
+// 1 + 2p padded coordinates fold onto it (edge on an axis of length 1),
+// each read by at most ceil(k / s) outputs
+bool pairs_fit(const Axis& a) {
+  return (1LL + 2LL * a.p) * ((a.k + a.s - 1) / a.s) <= MAX_PAIRS;
 }
 
 }  // namespace
@@ -255,4 +442,49 @@ extern "C" int c2m_conv_patches_f32(
                 : launch<float2, unsigned>(x, out, g, row0, rows, s);
   return wide ? launch<float, long long>(x, out, g, row0, rows, s)
               : launch<float, unsigned>(x, out, g, row0, rows, s);
+}
+
+// the input gradient of rows [row0, row0 + rows) of the patch matrix of a
+// conv of x [B, T, H, W, C] float32: grad_patches [rows, kt * kh * kw * C]
+// (the gather's layout) added back into out [B, T, H, W, C] along the
+// gather's index rule, over the input lines [line0, line0 + lines) (a line
+// is (b, t, h), all W x C of it); accumulate 0 writes those lines (0 where
+// the chunk reads nothing), 1 adds into them; modes and width as
+// c2m_conv_patches_f32 (width for both pointers)
+extern "C" int c2m_conv_patches_adjoint_f32(
+    const void* gp, void* out, long long B, long long T, long long H,
+    long long W, long long C, long long kt, long long kh, long long kw,
+    long long st, long long sh, long long sw, long long pt, long long ph,
+    long long pw, int mt, int mh, int mw, long long row0, long long rows,
+    long long line0, long long lines, int accumulate, int width,
+    void* stream) {
+  AdjointGeometry g;
+  long long to, ho, wo;
+  if (B <= 0 || C <= 0 || rows < 0 || row0 < 0 || line0 < 0 || lines < 0 ||
+      !(width == 1 || width == 2 || width == 4) || C % width != 0 ||
+      !make_axis(T, kt, st, pt, mt, &g.t, &to) ||
+      !make_axis(H, kh, sh, ph, mh, &g.h, &ho) ||
+      !make_axis(W, kw, sw, pw, mw, &g.w, &wo) || !pairs_fit(g.t) ||
+      !pairs_fit(g.h))
+    return (int)cudaErrorInvalidValue;
+  const long long cv = C / width;
+  const long long kv = kt * kh * kw * cv;
+  if (row0 + rows > B * to * ho * wo || rows * kv > INT32_LIMIT ||
+      line0 + lines > B * T * H || lines > INT32_LIMIT ||
+      W * cv > INT32_LIMIT || (W * cv + ADJ_BLOCK_ELEMS - 1) /
+      ADJ_BLOCK_ELEMS > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || lines == 0) return 0;
+  g.kv = (int)kv;
+  g.cv = (int)cv;
+  g.c_div = make_div((unsigned)cv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 4)
+    return launch_adjoint<float4>(gp, out, g, line0, lines, row0, rows,
+                                  accumulate, s);
+  if (width == 2)
+    return launch_adjoint<float2>(gp, out, g, line0, lines, row0, rows,
+                                  accumulate, s);
+  return launch_adjoint<float>(gp, out, g, line0, lines, row0, rows,
+                               accumulate, s);
 }

@@ -5,9 +5,12 @@ Every module takes and returns channels-last tensors (``[B, H, W, C]`` or
 two routes (:func:`conv_route`): ``cudnn`` pads, permutes its input to
 PyTorch's NCHW view (a view, no copy) and runs
 ``torch.nn.functional.conv2d``/``conv3d`` (cuDNN on the card); ``patch``,
-only for float32 inference on the card with TF32 off, gathers the padded
-patches with a hand-written kernel and multiplies them by the weight in
-one cuBLAS float32 GEMM (:func:`patch_conv`).
+only for float32 on the card with TF32 off and never for a trained conv's
+training call, gathers the padded patches with a hand-written kernel and
+multiplies them by the weight in one cuBLAS float32 GEMM
+(:func:`patch_conv`), and, outside ``torch.inference_mode``,
+differentiates through :class:`PatchConv`: cuBLAS GEMMs and the gather's
+hand-written adjoint.
 
 Norms follow ``module.training``: batch statistics (and running-stat
 updates) in train mode, running statistics in eval mode. Padding is explicit so that reflect padding can fall back to edge padding on
@@ -77,54 +80,95 @@ def _operands(mod, x: torch.Tensor):
     return x.to(dt), mod.weight.to(dt), bias
 
 
-# Bytes of patch matrix one chunk of rows may take. The widest conv of the
-# journal and long-horizon models (K = 27 x 528) still gets 37k rows a
-# chunk, a GEMM far past cuBLAS's tile count; the scratch is reused chunk
-# after chunk and never exceeds this.
+# Bytes of patch matrix one chunk of rows may take under
+# torch.inference_mode. The widest conv of the journal and long-horizon
+# models (K = 27 x 528) still gets 37k rows a chunk, a GEMM far past
+# cuBLAS's tile count; the scratch is reused chunk after chunk and never
+# exceeds this.
 PATCH_BYTES = 2 << 30
 
-# Conv and Conv3d calls by route since the process started (tests and
-# chip_smoke.py read the share the patch route takes).
-CONV_CALLS = {"patch": 0, "cudnn": 0}
+# Bytes of scratch a conv outside torch.inference_mode (a frozen net's
+# forward and backward in a train step, a no_grad pass) may take: the
+# forward's patch chunk, and in the backward the rebuilt patches and the
+# patch gradient together. Of 256 MiB to 2 GiB, the least read fastest in
+# the journal train step on an H100, and none moved its memory peak
+# (PERF.md, PR 17).
+TRAIN_PATCH_BYTES = 256 << 20
+
+# Conv and Conv3d calls by route since the process started, and the
+# backwards on the patch route (tests and chip_smoke.py read the share the
+# patch route takes).
+CONV_CALLS = {"patch": 0, "cudnn": 0, "patch_backward": 0}
 
 
-def conv_route(device_type: str, dtype: torch.dtype, inference: bool,
-               cudnn_tf32: bool, matmul_tf32: bool) -> str:
+def conv_route(device_type: str, dtype: torch.dtype, cudnn_tf32: bool,
+               matmul_tf32: bool, trains_weight: bool) -> str:
     """How a Conv or Conv3d computes, from what the call can observe:
-    ``patch`` (:func:`patch_conv`) for operands on the card in float32,
-    under ``torch.inference_mode`` (not ``no_grad``: the train step's VGG
-    pass runs under ``no_grad`` near the step's memory peak, where the
-    patch scratch would count) and with TF32 off for both cuDNN and cuBLAS
-    (so that the GEMM is exactly as precise as the conv it replaces);
-    ``cudnn`` (pad_spatial + F.conv2d / conv3d) for every other call: the
-    CPU, bfloat16, TF32, training and ``no_grad``. No width rule: on an H100 the patch route read faster at
-    every conv of the journal model, down to 1 output channel (PERF.md
-    section 6)."""
-    if (device_type == "cuda" and dtype == torch.float32 and inference
-            and not cudnn_tf32 and not matmul_tf32):
+    ``patch`` for operands on the card in float32 with TF32 off for both
+    cuDNN and cuBLAS (so that the GEMMs are exactly as precise as the convs
+    they replace), unless the call records a gradient for a weight that
+    trains (``trains_weight``: grad mode on and the weight requires grad).
+    So serving (:func:`patch_conv`), ``no_grad`` passes (generation, the
+    perceptual loss's pass on the real frames) and frozen nets in a train
+    step (VGG19 on the generated frames, with its input gradient:
+    :class:`PatchConv`) take it. ``cudnn`` (pad_spatial + F.conv2d /
+    conv3d, autograd's cuDNN backward) for every other call: the CPU,
+    bfloat16, TF32 and a trained conv's training call. That one keeps
+    cuDNN's forward because the train step turns a one-ulp change of any
+    trained conv's output into a change of some 1e-3 in a parameter's first
+    gradient norm, past what holds the port to its float32 reference, and
+    cuDNN's backward because the patch route's, faster on the device, read
+    slower end to end, where the host's launches set the pace (PERF.md,
+    PR 17). No width rule: on an H100 the patch route read faster at every
+    conv of the journal model, down to 1 output channel (PERF.md section
+    6)."""
+    if (device_type == "cuda" and dtype == torch.float32 and not cudnn_tf32
+            and not matmul_tf32 and not trains_weight):
         return "patch"
     return "cudnn"
 
 
-def _take_patch(mod, x: torch.Tensor) -> bool:
+def _route(mod, x: torch.Tensor) -> str:
     """:func:`conv_route` for this call of ``mod``, counted."""
     route = conv_route(x.device.type, mod.compute_dtype or mod.weight.dtype,
-                       torch.is_inference_mode_enabled(),
                        torch.backends.cudnn.allow_tf32,
-                       torch.backends.cuda.matmul.allow_tf32)
+                       torch.backends.cuda.matmul.allow_tf32,
+                       torch.is_grad_enabled() and mod.weight.requires_grad)
     CONV_CALLS[route] += 1
-    return route == "patch"
+    return route
+
+
+def _nchw_conv(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], stride: Sequence[int]
+               ) -> torch.Tensor:
+    """F.conv2d / conv3d (cuDNN on the card) on PyTorch's NCHW view of a
+    padded channels-last input; the channels-last view of the result."""
+    conv = F.conv2d if weight.dim() == 4 else F.conv3d
+    return conv(x.movedim(-1, 1), weight, bias, stride).movedim(1, -1)
+
+
+def _patch_weight(weight: torch.Tensor) -> torch.Tensor:
+    """[F, C, *kernel] -> [F, taps * C], the patches' (taps, C) order."""
+    return weight.permute(0, *range(2, weight.dim()), 1).reshape(
+        weight.shape[0], -1)
+
+
+def _chunk_rows(rows: int, k_all: int, element_size: int, budget: int) -> int:
+    """Rows of a [rows, k_all] matrix whose chunk fits ``budget`` bytes."""
+    return max(1, min(rows, budget // (k_all * element_size)))
 
 
 def patch_conv(x: torch.Tensor, weight: torch.Tensor,
                bias: Optional[torch.Tensor], stride: Sequence[int],
-               pad: Sequence[int], mode: str) -> torch.Tensor:
+               pad: Sequence[int], mode: str,
+               budget: Optional[int] = None) -> torch.Tensor:
     """A channels-last conv as patches x weight: x [B, (T,) H, W, C], weight
     [F, C, *kernel] -> [B, *out, F] contiguous. Output rows are cut into
-    chunks whose patch matrix fits ``PATCH_BYTES``; per chunk the kernel
-    gathers the padded patches (``ops/hopper/patches_kernel``) and one GEMM
-    writes the chunk's rows of the output, bias added. The weight is
-    permuted once to the patches' (taps, C) order."""
+    chunks whose patch matrix fits ``budget`` bytes (``PATCH_BYTES`` when
+    None); per chunk the kernel gathers the padded patches
+    (``ops/hopper/patches_kernel``) and one GEMM writes the chunk's rows of
+    the output, bias added. The weight is permuted once to the patches'
+    (taps, C) order."""
     kernel = tuple(weight.shape[2:])
     x = x.contiguous()
     b, *spatial, _ = x.shape
@@ -132,10 +176,12 @@ def patch_conv(x: torch.Tensor, weight: torch.Tensor,
             for n, k, s, p in zip(spatial, kernel, stride, pad)]
     rows = b * math.prod(outs)
     features = weight.shape[0]
-    w = weight.permute(0, *range(2, weight.dim()), 1).reshape(features, -1)
-    y = torch.empty(rows, features, dtype=x.dtype, device=x.device)
+    w = _patch_weight(weight)
+    out = torch.empty(b, *outs, features, dtype=x.dtype, device=x.device)
+    y = out.view(rows, features)
     k_all = w.shape[1]
-    chunk = max(1, min(rows, PATCH_BYTES // (k_all * x.element_size())))
+    chunk = _chunk_rows(rows, k_all, x.element_size(),
+                        PATCH_BYTES if budget is None else budget)
     scratch = torch.empty(chunk, k_all, dtype=x.dtype, device=x.device)
     for row0 in range(0, rows, chunk):
         n = min(chunk, rows - row0)
@@ -145,7 +191,101 @@ def patch_conv(x: torch.Tensor, weight: torch.Tensor,
             torch.mm(patches, w.t(), out=y[row0:row0 + n])
         else:
             torch.addmm(bias, patches, w.t(), out=y[row0:row0 + n])
-    return y.view(b, *outs, features)
+    return out
+
+
+def patch_conv_backward(x: torch.Tensor, weight: torch.Tensor,
+                        grad_y: torch.Tensor, stride: Sequence[int],
+                        pad: Sequence[int], mode: str, need_x: bool,
+                        need_w: bool, need_b: bool) -> tuple:
+    """The gradients (input, weight, bias; None where not needed) of
+    :func:`patch_conv` of x [B, (T,) H, W, C] by weight [F, C, *kernel] from
+    grad_y [B, *out, F]. Output rows are walked in chunks whose rebuilt
+    patches and patch gradient fit ``TRAIN_PATCH_BYTES`` together: the
+    weight gradient is
+    grad_y^T x patches, the chunk's patches rebuilt by the gather and the
+    products accumulated in one [F, K] buffer by cuBLAS; the input gradient
+    is grad_y x weight (cuBLAS), added back into the input by the gather's
+    adjoint kernel; the bias gradient the sum of grad_y over rows. No
+    atomics: the gradients repeat bit for bit."""
+    kernel, features = tuple(weight.shape[2:]), weight.shape[0]
+    g = grad_y.contiguous().view(-1, features)
+    rows = g.shape[0]
+    w = _patch_weight(weight)
+    k_all = w.shape[1]
+    grad_x = grad_w = None
+    if need_x or need_w:
+        chunk = _chunk_rows(rows, k_all, x.element_size(),
+                            TRAIN_PATCH_BYTES // (need_x + need_w))
+        if need_w:
+            patches = torch.empty(chunk, k_all, dtype=x.dtype,
+                                  device=x.device)
+            grad_w = torch.empty(features, k_all, dtype=x.dtype,
+                                 device=x.device)
+        if need_x:
+            grad_patches = torch.empty(chunk, k_all, dtype=x.dtype,
+                                       device=x.device)
+            grad_x = torch.empty_like(x)
+        for row0 in range(0, rows, chunk):
+            n = min(chunk, rows - row0)
+            g_n = g[row0:row0 + n]
+            if need_w:
+                p = patches_kernel.conv_patches(x, kernel, stride, pad, mode,
+                                                row0, n, out=patches[:n])
+                if row0 == 0:
+                    torch.mm(g_n.t(), p, out=grad_w)
+                else:
+                    grad_w.addmm_(g_n.t(), p)
+            if need_x:
+                gp = torch.mm(g_n, w, out=grad_patches[:n])
+                patches_kernel.conv_patches_adjoint(
+                    gp, grad_x, kernel, stride, pad, mode, row0,
+                    accumulate=row0 > 0)
+        if need_w:
+            nd = len(kernel)
+            grad_w = grad_w.view(features, *kernel, -1).permute(
+                0, nd + 1, *range(1, nd + 1)).contiguous()
+    return grad_x, grad_w, g.sum(0) if need_b else None
+
+
+class PatchConv(torch.autograd.Function):
+    """:func:`patch_conv` with its backward on the patch route
+    (:func:`patch_conv_backward`), for the calls outside
+    ``torch.inference_mode``; its scratch budget is ``TRAIN_PATCH_BYTES``.
+    The forward saves the unpadded input and the weight: no padded copy and
+    no patch matrix. The backward computes only what ``needs_input_grad``
+    asks for."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, pad, mode):
+        x = x.contiguous()
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (tuple(stride), tuple(pad), mode)
+        return patch_conv(x, weight, bias, stride, pad, mode,
+                          TRAIN_PATCH_BYTES)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_y):
+        CONV_CALLS["patch_backward"] += 1
+        x, weight = ctx.saved_tensors
+        return (*patch_conv_backward(x, weight, grad_y, *ctx.conv,
+                                     *ctx.needs_input_grad[:3]),
+                None, None, None)
+
+
+def _conv(mod, x: torch.Tensor) -> torch.Tensor:
+    """One call of a Conv or Conv3d ``mod`` on its route
+    (:func:`conv_route`): pad_spatial + cuDNN with autograd's backward,
+    :func:`patch_conv` under ``torch.inference_mode`` (serving: no autograd,
+    ``PATCH_BYTES`` of scratch), else :class:`PatchConv`."""
+    if _route(mod, x) == "cudnn":
+        x = pad_spatial(x, [(p, p) for p in mod.pad], mod.pad_mode)
+        return _nchw_conv(*_operands(mod, x), mod.stride)
+    x, weight, bias = _operands(mod, x)
+    if torch.is_inference_mode_enabled():
+        return patch_conv(x, weight, bias, mod.stride, mod.pad, mod.pad_mode)
+    return PatchConv.apply(x, weight, bias, mod.stride, mod.pad, mod.pad_mode)
 
 
 class Conv(nn.Conv2d):
@@ -164,13 +304,7 @@ class Conv(nn.Conv2d):
         self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _take_patch(self, x):
-            return patch_conv(*_operands(self, x), self.stride, self.pad,
-                              self.pad_mode)
-        x = pad_spatial(x, [(p, p) for p in self.pad], self.pad_mode)
-        x, weight, bias = _operands(self, x)
-        y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, self.stride)
-        return y.permute(0, 2, 3, 1)
+        return _conv(self, x)
 
 
 class Conv3d(nn.Conv3d):
@@ -187,13 +321,7 @@ class Conv3d(nn.Conv3d):
         self.compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _take_patch(self, x):
-            return patch_conv(*_operands(self, x), self.stride, self.pad,
-                              self.pad_mode)
-        x = pad_spatial(x, [(p, p) for p in self.pad], self.pad_mode)
-        x, weight, bias = _operands(self, x)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias, self.stride)
-        return y.permute(0, 2, 3, 4, 1)
+        return _conv(self, x)
 
 
 class Dense(nn.Linear):

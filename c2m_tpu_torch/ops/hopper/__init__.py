@@ -73,6 +73,10 @@ _SIGNATURES = {
     # row0, rows, width, wide, stream
     "c2m_conv_patches_f32": [_P, _P] + [_L] * 14 + [_I] * 3 + [_L, _L, _I, _I,
                                                                _P],
+    # grad_patches, out, B, T, H, W, C, kt, kh, kw, st, sh, sw, pt, ph, pw,
+    # mt, mh, mw, row0, rows, line0, lines, accumulate, width, stream
+    "c2m_conv_patches_adjoint_f32": [_P, _P] + [_L] * 14 + [_I] * 3
+    + [_L] * 4 + [_I, _I, _P],
 }
 
 

@@ -172,8 +172,18 @@ Phases (any failure raises and the script exits non-zero):
      both against float64 (max error over the largest output), and device
      times by kernel of both routes (cuDNN's top kernel, the gather, the
      GEMM) beside the gather's bound and the GFLOP; a 12-clip inference
-     on both routes in turns (inference_mode / no_grad); a float32 train
-     step, which must launch the gather 0 times.
+     on both routes in turns;
+ 19. the patch route's backward (nn/layers.PatchConv) in the float32 train
+     step at the journal config, TF32 off: one step with every Conv /
+     Conv3d call recorded: a trained conv's call must take cuDNN, every
+     other call (VGG19) the patch route, and each of those whose input
+     needs a gradient and whose output reaches a loss one
+     ``patch_backward``, with the adjoint kernel launched; at each conv
+     shape of that step the forward, input gradient and weight gradient
+     (where the step needs them) on cuDNN and on the patch route, each part
+     alone on the device (a CUDA graph of the call on one stream), each
+     side's gap against float64, and the adjoint kernel alone beside its
+     byte bound.
 With --profile, torch.profiler splits one warm train step and one warm
 request of each config, the full-frame Panoptic-DeepLab and one track()
 call by operator and by kernel (printed).
@@ -3176,8 +3186,10 @@ def preprocess_chain(cfg, dev, root: str, weights: dict) -> dict:
     log(f"  precompute_flow at the journal config ({t} frames, {w}x{h}) on "
         f"one clip: {wall:.1f} s as a subprocess; {len(flows)} .flow files, "
         f"finite; launches in its process {counts}")
-    expect_launched(counts, {"correlation", "corresponding_map"},
-                    "precompute_flow")
+    # FlowNet2 runs float32, TF32 off, under no_grad: its convs take the
+    # patch route's gather (nn/layers.conv_route)
+    expect_launched(counts, {"correlation", "corresponding_map",
+                             "conv_patches"}, "precompute_flow")
     check(counts["correlation"] == counts["corresponding_map"] == 2 * (t - 1),
           f"precompute_flow launches {counts}, not 2(T-1) of K5 and K4")
 
@@ -3513,6 +3525,20 @@ def phase_tools(cfg, dev, smi: str) -> dict:
 TOL_PATCH_CONV = 1e-4
 
 
+@contextlib.contextmanager
+def on_route(route: str):
+    """Every Conv / Conv3d call inside takes ``route`` ("cudnn" or
+    "patch"), whatever ``layers.conv_route`` would pick: the same modules on
+    either route, for the comparisons of phases 18 and 19 (float32 only)."""
+    from c2m_tpu_torch.nn import layers
+    real = layers.conv_route
+    layers.conv_route = lambda *a: route
+    try:
+        yield
+    finally:
+        layers.conv_route = real
+
+
 def record_convs(model):
     """Forward pre-hooks on every Conv / Conv3d of ``model`` appending
     (module name, module, input shape) to the returned list; -> (list,
@@ -3555,8 +3581,8 @@ def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
                                   min(chunk, n_rows - row0))
 
     plain_ms = time_ms(plain_gather, reps=3, warmup=1)
-    with torch.no_grad():
-        cudnn = mod(x)                              # the cudnn route
+    with torch.no_grad(), on_route("cudnn"):
+        cudnn = mod(x)
         xp = layers.pad_spatial(x.double(), [(p, p) for p in pad],
                                 mod.pad_mode)
         conv = (torch.nn.functional.conv2d if len(kernel) == 2
@@ -3581,7 +3607,7 @@ def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
     del patch, cudnn, exact
 
     def run_cudnn():
-        with torch.no_grad():
+        with torch.no_grad(), on_route("cudnn"):
             mod(x)
 
     def ten(fn):
@@ -3679,8 +3705,8 @@ def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
 
 
 def route_ab(model, request, dev):
-    """One request's inference on the patch route (inference_mode) and the
-    cuDNN route (no_grad) in turns, float32 with TF32 off, same inputs. ->
+    """One request's inference on the patch route and the cuDNN route in
+    turns (both under inference_mode), float32 with TF32 off, same inputs. ->
     (milliseconds of each turn by route, each floating output's gap as
     perfbench/compare.py defines it: the worst row's mean |diff| over the
     cuDNN route's mean magnitude)."""
@@ -3690,11 +3716,9 @@ def route_ab(model, request, dev):
     outs, times = {}, {"patch": [], "cudnn": []}
     with full_float32():
         for turn in ("patch", "cudnn", "cudnn", "patch") * 3:
-            ctx = (torch.inference_mode() if turn == "patch"
-                   else torch.no_grad())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with ctx:
+            with torch.inference_mode(), on_route(turn):
                 o = model.inference(bt, zt, ct, False)
             torch.cuda.synchronize()
             times[turn].append((time.perf_counter() - t0) * 1e3)
@@ -3720,14 +3744,12 @@ def phase_patch_conv(cfg, dev):
     from c2m_tpu_torch.nn import layers
     from c2m_tpu_torch.ops.hopper import patches_kernel as pk
     from c2m_tpu_torch.serving import ServingModel
-    from c2m_tpu_torch.train.state import create_train_state
-    from c2m_tpu_torch.train.step import make_train_step
     t_phase = time.perf_counter()
     cfg32 = copy.deepcopy(cfg)
     cfg32.train_params.dtype = "float32"
     log("[phase 18] the patch route of the float32 convolutions at the "
         "journal config, TF32 off: route shares, the gather kernel, patch "
-        "vs cuDNN per shape, a request on both routes, a train step")
+        "vs cuDNN per shape, a request on both routes")
     model = build_model(cfg32).to(dev).use_compute_dtype(
         DTYPES[cfg32.train_params.dtype])
     server = ServingModel(model, (1, BUCKET), use_gt_eval=False)
@@ -3785,26 +3807,275 @@ def phase_patch_conv(cfg, dev):
                 f"{total['gather_ms']:.2f})")
 
     times, gaps = route_ab(model, reqs[-1], dev)
-
-    # a float32 train step never takes the patch route
-    state = create_train_state(cfg32, seed=SEED, device=dev)
-    batch = train_batch(cfg32, dev, cfg32.train_params.batch_size, 11)
-    before, launches = dict(layers.CONV_CALLS), pk.CONV_PATCHES.launches
-    with full_float32():
-        make_train_step(cfg32)(state, batch)
-    torch.cuda.synchronize()
-    step_routes = {k: layers.CONV_CALLS[k] - before[k] for k in before}
-    log(f"  a float32 train step (TF32 off): conv routes {step_routes}, "
-        f"gather launches {pk.CONV_PATCHES.launches - launches}")
-    check(pk.CONV_PATCHES.launches == launches and step_routes["patch"] == 0,
-          "the train step launched the gather")
-    del state
+    del server, model
     release_memory()
     log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
     row = {"shapes": rows, "requests": {str(k): v for k, v in shares.items()},
-           "inference_ms": times, "inference_gaps": gaps,
-           "train_step_routes": step_routes}
+           "inference_ms": times, "inference_gaps": gaps}
     return row, counts
+
+
+# -- phase 19: the patch route's backward in the float32 train step -----------
+
+def stream_ms(make, launches: int = 10, reps: int = 3) -> float:
+    """Median milliseconds of one call on the device alone: ``make()``
+    builds what a call needs (a forward whose backward the call runs, say)
+    and returns the call; both run on one side stream, which a CUDA graph
+    then captures ``launches`` calls on, so that the autograd engine
+    launches the backward's kernels on the captured stream (it takes each
+    node's forward stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn = make()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, reps=reps, warmup=1) / launches
+
+
+def record_train_convs(model):
+    """Forward hooks on every Conv / Conv3d of ``model`` appending (module
+    name, module, input shape, grad mode, input needs a gradient, weight
+    needs a gradient) to the returned list, and adding the name of a call
+    whose output a backward reached to the returned set; -> (list, set,
+    handles)."""
+    from c2m_tpu_torch.nn.layers import Conv, Conv3d
+    calls, reached, handles = [], set(), []
+
+    def hook(mod, args, out, name):
+        grad = torch.is_grad_enabled()
+        calls.append((name, mod, tuple(args[0].shape), grad,
+                      grad and args[0].requires_grad,
+                      grad and mod.weight.requires_grad))
+        if out.requires_grad:
+            key = len(calls) - 1
+            out.register_hook(lambda g: reached.add(key))
+
+    for name, m in model.named_modules():
+        if isinstance(m, (Conv, Conv3d)):
+            handles.append(m.register_forward_hook(
+                lambda mod, args, out, name=name: hook(mod, args, out,
+                                                       name)))
+    return calls, reached, handles
+
+
+def train_shape_row(name, mod, shape, need_x, need_w, dev) -> dict:
+    """One conv shape of the float32 train step: forward, input gradient
+    and weight gradient (each where the step needs it) on cuDNN and on the
+    patch route, each part alone on the device; each side's gap against
+    float64; the adjoint kernel alone beside its bound."""
+    import torch.nn.functional as F
+    from c2m_tpu_torch.nn import layers
+    from c2m_tpu_torch.ops.hopper import patches_kernel as pk
+    g = torch.Generator(device=dev).manual_seed(SEED + 19 + len(shape))
+    x = torch.randn(shape, generator=g, device=dev)
+    kernel, stride, pad, mode = (tuple(mod.kernel_size), mod.stride, mod.pad,
+                                 mod.pad_mode)
+    nd = len(kernel)
+    conv = F.conv2d if nd == 2 else F.conv3d
+    w, b = mod.weight.detach(), mod.bias.detach()
+
+    def cudnn_conv(x_, w_, b_):
+        xp = layers.pad_spatial(x_, [(p, p) for p in pad], mode)
+        return conv(xp.movedim(-1, 1), w_, b_, stride).movedim(1, -1)
+
+    def patch_conv(x_, w_, b_):
+        return layers.PatchConv.apply(x_, w_, b_, stride, pad, mode)
+
+    y_shape = cudnn_conv(x[:1], w, b).shape[1:]
+    gy = torch.randn(shape[0], *y_shape, generator=g, device=dev)
+    b_, *spatial, c = shape
+    outs = [pk.out_size(n, k, s_, p) for n, k, s_, p in
+            zip(spatial, kernel, stride, pad)]
+    n_rows, k_all = b_ * int(np.prod(outs)), c * int(np.prod(kernel))
+    gflop = 2 * n_rows * k_all * mod.out_channels / 1e9
+
+    def outputs(side_conv, dtype):
+        """The output and the gradients the step needs, in ``dtype``."""
+        ops = {"x": x.to(dtype, copy=True).requires_grad_(need_x),
+               "w": w.to(dtype, copy=True).requires_grad_(need_w),
+               "b": b.to(dtype, copy=True).requires_grad_(need_w)}
+        y = side_conv(*ops.values())
+        wrt = {k: t for k, t in ops.items() if t.requires_grad}
+        got = dict(zip(wrt, torch.autograd.grad(y, list(wrt.values()),
+                                                gy.to(dtype)))) if wrt else {}
+        return {"y": y.detach(), **got}
+
+    # float64 on the card, cuDNN's arithmetic: the yardstick of both sides
+    want = outputs(cudnn_conv, torch.float64)
+
+    def gaps(side_conv):
+        got = outputs(side_conv, torch.float32)
+        return {k: float((got[k].double() - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30))
+                for k, v in want.items()}
+
+    row = {"module": name, "input": list(shape), "kernel": list(kernel),
+           "stride": list(stride), "pad": list(pad), "mode": mode,
+           "features": mod.out_channels, "rows": n_rows, "K": k_all,
+           "gflop": gflop, "need_x": need_x, "need_w": need_w}
+    for side, side_conv in (("cudnn", cudnn_conv), ("patch", patch_conv)):
+        row[f"{side}_gap"] = gaps(side_conv)
+
+        def forward(side_conv=side_conv):
+            with torch.no_grad():
+                side_conv(x, w, b)
+
+        row[f"{side}_fwd_ms"] = stream_ms(lambda: forward)
+        for part, on in (("dgrad", need_x), ("wgrad", need_w)):
+            if not on:
+                row[f"{side}_{part}_ms"] = 0.0
+                continue
+
+            def make(part=part, side_conv=side_conv):
+                xs = x.clone().requires_grad_(part == "dgrad")
+                ws = w.clone().requires_grad_(part == "wgrad")
+                bs = b.clone().requires_grad_(part == "wgrad")
+                y = side_conv(xs, ws, bs)
+                wrt = [xs] if part == "dgrad" else [ws, bs]
+                return lambda: torch.autograd.grad(y, wrt, gy,
+                                                   retain_graph=True)
+
+            row[f"{side}_{part}_ms"] = stream_ms(make)
+        row[f"{side}_ms"] = sum(row[f"{side}_{p}_ms"]
+                                for p in ("fwd", "dgrad", "wgrad"))
+    if need_x:
+        # the adjoint alone: every chunk of the patch gradient added back
+        wp = layers._patch_weight(w)
+        chunk = layers._chunk_rows(n_rows, k_all, 4, layers.TRAIN_PATCH_BYTES
+                                   // (1 + need_w))
+        spans = [(r0, min(chunk, n_rows - r0))
+                 for r0 in range(0, n_rows, chunk)]
+        gp = torch.mm(gy.reshape(n_rows, -1)[:chunk], wp)
+        grad_x = torch.empty_like(x)
+
+        def adjoint_all():
+            for r0, n in spans:
+                pk.conv_patches_adjoint(gp[:n], grad_x, kernel, stride, pad,
+                                        mode, r0, accumulate=r0 > 0)
+
+        row["adjoint_ms"] = device_ms(adjoint_all, launches=10, reps=3)
+        row["adjoint_chunks"] = len(spans)
+        row["layout"] = {4: "vec4", 2: "vec2", 1: "scalar"}[
+            pk.patches_route(shape, n_rows)[0]]
+        row.update({f"adjoint_{k}": v for k, v in bound(
+            (n_rows * k_all + x.numel()) * 4, 0).items()})
+        check(row["adjoint_ms"] > 0, f"{name} {shape}: the adjoint read no "
+              f"time")
+    log(f"  {name[:40]:40s} {list(shape)} k{list(kernel)} s{list(stride)} "
+        f"F{mod.out_channels} x{int(need_x)}w{int(need_w)}: {gflop:6.2f} "
+        f"GFLOP; cuDNN fwd/dgrad/wgrad {row['cudnn_fwd_ms']:.3f}/"
+        f"{row['cudnn_dgrad_ms']:.3f}/{row['cudnn_wgrad_ms']:.3f} ms, patch "
+        f"{row['patch_fwd_ms']:.3f}/{row['patch_dgrad_ms']:.3f}/"
+        f"{row['patch_wgrad_ms']:.3f} ms"
+        + (f", adjoint {row['adjoint_ms']:.3f} (bound "
+           f"{row['adjoint_bound_ms']:.3f}, {row['adjoint_chunks']} chunks)"
+           if need_x else "")
+        + f"; vs f64 cuDNN {row['cudnn_gap']} patch {row['patch_gap']}")
+    for side in ("cudnn", "patch"):
+        for k, v in row[f"{side}_gap"].items():
+            check(v <= TOL_PATCH_CONV, f"{name} {shape}: {side} {k} against "
+                  f"float64 {v}")
+    return row
+
+
+def phase_patch_backward(cfg, dev):
+    """Phase 19 (module docstring). -> (the adjoint's kernel row, the
+    launch counts of one step)."""
+    from c2m_tpu_torch.nn import layers
+    from c2m_tpu_torch.ops.hopper import patches_kernel as pk
+    from c2m_tpu_torch.train.state import create_train_state
+    from c2m_tpu_torch.train.step import make_train_step
+    t_phase = time.perf_counter()
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.train_params.dtype = "float32"
+    log("[phase 19] the patch route's backward in the float32 train step "
+        "at the journal config, TF32 off: routes, the adjoint kernel, patch "
+        "vs cuDNN per shape")
+    state = create_train_state(cfg32, seed=SEED, device=dev)
+    batch = train_batch(cfg32, dev, cfg32.train_params.batch_size, 11)
+    step = make_train_step(cfg32)
+    calls, reached, handles = record_train_convs(state.model)
+    with full_float32():
+        step(state, batch)                              # warm
+        torch.cuda.synchronize()
+        calls.clear()
+        reached.clear()
+        before = dict(layers.CONV_CALLS)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+    counts = read_launches()
+    for h in handles:
+        h.remove()
+    routed = {k: layers.CONV_CALLS[k] - before[k] for k in before}
+    # a trained conv's grad-enabled call stays on cuDNN; a frozen conv's
+    # (VGG19) and every no_grad call take the patch route, and its backward
+    # runs where the input needs a gradient and the output reaches a loss
+    trained = [c[0] for c in calls if c[5]]
+    unused = [c[0] for i, c in enumerate(calls)
+              if (c[4] or c[5]) and i not in reached]
+    backward = sum(1 for i, c in enumerate(calls)
+                   if c[4] and not c[5] and i in reached)
+    log(f"  one float32 train step (TF32 off): {len(calls)} Conv / Conv3d "
+        f"calls ({sum(1 for c in calls if not c[3])} without grad, "
+        f"{len(trained)} of trained convs with grad), routes {routed}; "
+        f"{len(unused)} calls that need a gradient reach no loss (no "
+        f"backward runs): {unused}; gather launches "
+        f"{counts['conv_patches']}, adjoint launches "
+        f"{counts['conv_patches_adjoint']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    check(routed["cudnn"] == len(trained)
+          and routed["patch"] == len(calls) - len(trained)
+          and routed["patch_backward"] == backward
+          and counts["conv_patches_adjoint"] > 0,
+          f"the train step's routes: {routed}, {len(trained)} trained convs "
+          f"with grad, {backward} frozen-conv backwards")
+    del state, batch
+    release_memory()
+
+    rows, seen = [], {}
+    with full_float32():
+        for i, (name, mod, shape, grad, need_x, need_w) in enumerate(calls):
+            # a backward runs only where the output reaches a loss
+            need_x, need_w = need_x and i in reached, need_w and i in reached
+            key = (mod.in_channels, mod.out_channels, tuple(mod.kernel_size),
+                   mod.stride, mod.pad, mod.pad_mode, shape, need_x, need_w)
+            if key in seen:
+                seen[key]["calls"] += 1
+                continue
+            seen[key] = {**train_shape_row(name, mod, shape, need_x, need_w,
+                                           dev), "calls": 1,
+                         "step_route": "cudnn" if need_w else "patch"}
+            rows.append(seen[key])
+            release_memory()
+    keys = ("gflop", "cudnn_ms", "patch_ms", "cudnn_fwd_ms", "patch_fwd_ms",
+            "cudnn_dgrad_ms", "patch_dgrad_ms", "cudnn_wgrad_ms",
+            "patch_wgrad_ms", "adjoint_ms", "adjoint_bound_ms")
+    total = {which: {k: sum(r.get(k, 0) * r["calls"] for r in rows
+                            if which == "all" or r["step_route"] == which)
+                     for k in keys}
+             for which in ("all", "patch", "cudnn")}
+    for which, t in total.items():
+        what = {"all": "every conv of the step",
+                "patch": "the convs the step takes on the patch route",
+                "cudnn": "the trained convs (on cuDNN in the step)"}[which]
+        log(f"  {what}: {t['gflop']:.1f} GFLOP forward; on cuDNN {t['cudnn_ms']:.2f} ms "
+            f"(fwd {t['cudnn_fwd_ms']:.2f}, dgrad {t['cudnn_dgrad_ms']:.2f}, "
+            f"wgrad {t['cudnn_wgrad_ms']:.2f}), on the patch route "
+            f"{t['patch_ms']:.2f} ms (fwd {t['patch_fwd_ms']:.2f}, dgrad "
+            f"{t['patch_dgrad_ms']:.2f}, wgrad {t['patch_wgrad_ms']:.2f}); "
+            f"the adjoint {t['adjoint_ms']:.2f} ms against its bound "
+            f"{t['adjoint_bound_ms']:.2f}")
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": rows, "step_routes": routed,
+            "reach_no_loss": unused, "total": total}, counts
 
 
 def profile_window(name: str, fn, warm_ms: float) -> None:
@@ -3900,6 +4171,8 @@ def main() -> int:
     counts["preprocess"] = phase_preprocess(cfg, dev, smi, profile)
     counts.update(phase_tools(cfg, dev, smi))
     rows["conv_patches"], counts["patch_conv"] = phase_patch_conv(cfg, dev)
+    rows["conv_patches_adjoint"], counts["patch_train"] = \
+        phase_patch_backward(cfg, dev)
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")

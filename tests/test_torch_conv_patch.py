@@ -1,10 +1,12 @@
 """The patch route of the port's convolutions (``nn/layers.conv_route``,
-``patch_conv`` and the gather of ``ops/hopper/patches_kernel``), held on the
-CPU: the gather's plain version against ``pad_spatial`` + an explicit
-unfold, the patch conv against ``F.conv2d`` / ``F.conv3d`` at every conv
-geometry of the journal, long-horizon, KITTI and SPADE generators, the
-route's decisions and its call counters. The gather kernel itself runs only
-on a card (the ``cuda`` test at the end). This file imports nothing of JAX.
+``patch_conv``, ``PatchConv`` and the gather and its adjoint in
+``ops/hopper/patches_kernel``), held on the CPU: the gather's plain version
+against ``pad_spatial`` + an explicit unfold, the adjoint's against the
+gather by the adjoint identity, the patch conv and its gradients against
+``F.conv2d`` / ``F.conv3d`` and their autograd at every conv geometry of
+the journal, long-horizon, KITTI and SPADE generators, the route's
+decisions and its call counters. The kernels themselves run only on a card
+(the ``cuda`` tests at the end). This file imports nothing of JAX.
 """
 
 import pytest
@@ -136,8 +138,85 @@ def test_geometries_cover_the_generators():
     assert seen == set(GEOMETRIES)
 
 
-PATCH_CALL = dict(device_type="cuda", dtype=torch.float32, inference=True,
-                  cudnn_tf32=False, matmul_tf32=False)
+@pytest.mark.parametrize("geometry,short,channels", CASES)
+@pytest.mark.parametrize("budget", [layers.TRAIN_PATCH_BYTES, 20000])
+def test_patch_conv_gradients(monkeypatch, geometry, short, channels,
+                              budget):
+    """PatchConv's input, weight and bias gradients in float64 against
+    autograd of pad_spatial + F.conv2d / conv3d, for each subset of operands
+    that needs a gradient (the small budget cuts each image into chunks of
+    a few rows)."""
+    kernel, stride, pad, mode = geometry
+    monkeypatch.setattr(layers, "TRAIN_PATCH_BYTES", budget)
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(2, *spatial_sizes(kernel, pad, short), channels,
+                    generator=g, dtype=torch.float64)
+    w = torch.randn(5, channels, *kernel, generator=g, dtype=torch.float64)
+    b = torch.randn(5, generator=g, dtype=torch.float64)
+    want_y = reference_conv(x, w, b, stride, pad, mode)
+    gy = torch.randn(want_y.shape, generator=g, dtype=torch.float64)
+    for need_x, need_w in ((True, True), (True, False), (False, True)):
+        operands = [x.clone().requires_grad_(need_x),
+                    w.clone().requires_grad_(need_w),
+                    b.clone().requires_grad_(need_w)]
+        want = torch.autograd.grad(
+            (reference_conv(*operands, stride, pad, mode) * gy).sum(),
+            [t for t in operands if t.requires_grad])
+        before = layers.CONV_CALLS["patch_backward"]
+        y = layers.PatchConv.apply(*operands, stride, pad, mode)
+        got = torch.autograd.grad((y * gy).sum(),
+                                  [t for t in operands if t.requires_grad])
+        assert layers.CONV_CALLS["patch_backward"] == before + 1
+        for a, e in zip((y, *got), (want_y, *want)):
+            assert a.shape == e.shape and a.is_contiguous()
+            err = (a - e).abs().max() / e.abs().max()
+            assert err <= TOL_CONV64, err
+
+
+@pytest.mark.parametrize("geometry,short,channels", CASES)
+@pytest.mark.parametrize("mode", MODES)
+def test_adjoint_plain_is_the_gathers_adjoint(geometry, short, channels,
+                                              mode):
+    """<gather(x), g> == <x, adjoint(g)> on a chunk of rows, and the run of
+    input lines ``adjoint_lines`` gives holds every line the chunk reads."""
+    kernel, stride, pad, _ = geometry
+    g = torch.Generator().manual_seed(23)
+    shape = (2, *spatial_sizes(kernel, pad, short), channels)
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    n_rows = pk.conv_patches_plain(x, kernel, stride, pad, mode).shape[0]
+    for row0, rows in ((0, n_rows), (n_rows // 3, n_rows // 2 + 1),
+                       (n_rows - 1, 1)):
+        patches = pk.conv_patches_plain(x, kernel, stride, pad, mode, row0,
+                                        rows)
+        gp = torch.randn(patches.shape, generator=g, dtype=torch.float64)
+        adj = pk.conv_patches_adjoint_plain(gp, shape, kernel, stride, pad,
+                                            mode, row0)
+        lhs, rhs = (patches * gp).sum(), (x * adj).sum()
+        assert abs(lhs - rhs) <= 1e-12 * (patches.abs() * gp.abs()).sum()
+        out = torch.ones(shape, dtype=torch.float64)
+        pk.conv_patches_adjoint(gp, out, kernel, stride, pad, mode, row0,
+                                accumulate=True)
+        assert torch.equal(out, adj + 1)
+        read = adj.abs().flatten(0, -3).sum((1, 2)).nonzero().flatten()
+        first, count = pk.adjoint_lines(shape, kernel, stride, pad, mode,
+                                        row0, rows)
+        assert first <= int(read.min()) and int(read.max()) < first + count
+
+
+def test_patch_conv_gradcheck():
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 4, 5, 3, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    w = torch.randn(2, 3, 3, 3, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    b = torch.randn(2, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda *t: layers.PatchConv.apply(*t, (2, 1), (1, 1), "reflect"),
+        (x, w, b))
+
+
+PATCH_CALL = dict(device_type="cuda", dtype=torch.float32, cudnn_tf32=False,
+                  matmul_tf32=False, trains_weight=False)
 
 
 @pytest.mark.parametrize("change,route", [
@@ -147,13 +226,64 @@ PATCH_CALL = dict(device_type="cuda", dtype=torch.float32, inference=True,
     ({"dtype": torch.bfloat16}, "cudnn"),
     ({"dtype": torch.float16}, "cudnn"),
     ({"dtype": torch.float64}, "cudnn"),
-    ({"inference": False}, "cudnn"),
     ({"cudnn_tf32": True}, "cudnn"),
     ({"matmul_tf32": True}, "cudnn"),
     ({"cudnn_tf32": True, "matmul_tf32": True}, "cudnn"),
+    ({"trains_weight": True}, "cudnn"),
 ])
 def test_conv_route(change, route):
     assert layers.conv_route(**{**PATCH_CALL, **change}) == route
+
+
+@pytest.fixture
+def cpu_as_card(monkeypatch):
+    """conv_route as it decides for the card, asked for CPU tensors, with
+    both TF32 flags off (restored after)."""
+    real = layers.conv_route
+    monkeypatch.setattr(layers, "conv_route",
+                        lambda device, *a: real("cuda", *a))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("grad_mode", ["frozen", "no_grad", "inference",
+                                       "trained", "bfloat16", "tf32"])
+def test_the_route_by_grad_mode(cpu_as_card, grad_mode):
+    """A frozen conv in a grad-enabled call (its input needs a gradient), a
+    no_grad and an inference call take the patch route; a trained conv's
+    grad-enabled call and bfloat16 and TF32 calls cuDNN. A backward on the
+    patch route counts once on ``patch_backward`` and gives the cudnn
+    route's input gradient."""
+    torch.manual_seed(0)
+    module = layers.Conv3d(6, 16, (3, 4, 4), (1, 2, 2), 1, "reflect")
+    if grad_mode == "frozen":
+        module.requires_grad_(False)
+    x = torch.randn(2, 3, 6, 7, 6, generator=torch.Generator().manual_seed(4),
+                    requires_grad=True)
+    if grad_mode == "bfloat16":
+        layers.use_compute_dtype(module, torch.bfloat16)
+    if grad_mode == "tf32":
+        torch.backends.cudnn.allow_tf32 = True
+    ctx = {"no_grad": torch.no_grad(),
+           "inference": torch.inference_mode()}.get(grad_mode,
+                                                    torch.enable_grad())
+    before = dict(layers.CONV_CALLS)
+    with ctx:
+        y = module(x)
+    routed = {k: layers.CONV_CALLS[k] - before[k] for k in before}
+    want = ("patch" if grad_mode in ("frozen", "no_grad", "inference")
+            else "cudnn")
+    assert routed == {**dict.fromkeys(before, 0), want: 1}
+    assert y.requires_grad == (grad_mode not in ("no_grad", "inference"))
+    if grad_mode == "frozen":
+        gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(5))
+        got, = torch.autograd.grad((y * gy).sum(), [x])
+        assert layers.CONV_CALLS["patch_backward"] == before[
+            "patch_backward"] + 1
+        ref = reference_conv(x, module.weight, module.bias, module.stride,
+                             module.pad, module.pad_mode)
+        want_g, = torch.autograd.grad((ref * gy).sum(), [x])
+        torch.testing.assert_close(got, want_g, rtol=1e-4, atol=1e-4)
 
 
 def tiny_cfg():
@@ -250,3 +380,87 @@ def test_gather_kernel_on_the_card(monkeypatch, wide):
     want = pk.conv_patches_plain(x, (3, 3), (1, 1), (1, 1), "reflect")
     got = pk.conv_patches(view, (3, 3), (1, 1), (1, 1), "reflect")
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_adjoint_kernel_on_the_card():
+    """Every geometry, mode and move width: the adjoint kernel against its
+    plain version within float32 rounding on the first chunk (written) and
+    the last (added into what the first wrote), with its launch count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: csrc/patches.cu runs only there")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(13)
+    for (kernel, stride, pad, _), short, c in CASES:
+        for channels in (c, 34, 64):
+            shape = (3, *spatial_sizes(kernel, pad, short), channels)
+            n_rows = pk._geometry(shape, kernel, stride, pad)[4]
+            k_all = channels * torch.Size(kernel).numel()
+            for mode in MODES:
+                gp = torch.randn(n_rows, k_all, generator=g)
+                cut = n_rows // 3 + 1
+                want = pk.conv_patches_adjoint_plain(
+                    gp[:cut], shape, kernel, stride, pad, mode)
+                out = torch.full(shape, float("nan"), device=dev)
+                before = pk.CONV_PATCHES_ADJOINT.launches
+                pk.conv_patches_adjoint(gp[:cut].to(dev), out, kernel,
+                                        stride, pad, mode)
+                assert pk.CONV_PATCHES_ADJOINT.launches == before + 1
+                torch.testing.assert_close(out.cpu(), want, rtol=1e-5,
+                                           atol=1e-5)
+                want = want + pk.conv_patches_adjoint_plain(
+                    gp[cut:], shape, kernel, stride, pad, mode, cut)
+                pk.conv_patches_adjoint(gp[cut:].to(dev), out, kernel,
+                                        stride, pad, mode, cut,
+                                        accumulate=True)
+                torch.testing.assert_close(out.cpu(), want, rtol=1e-5,
+                                           atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", [
+    layers.Conv(34, 32, 3, 1, 1, "reflect"),
+    layers.Conv(3, 32, 7, 1, 3, "reflect"),
+    layers.Conv3d(34, 32, 3, 1, 1, "reflect"),
+])
+def test_patch_backward_on_the_card(monkeypatch, module):
+    """On the card, float32 with TF32 off: PatchConv's input, weight and
+    bias gradients repeat bit for bit over two backwards of the same inputs
+    (chunked: the budget splits the images) and agree with cuDNN's; a
+    grad-enabled call counts on ``cudnn`` where the weights train, else on
+    ``patch`` and, in its backward, ``patch_backward``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: csrc/patches.cu runs only there")
+    dev = torch.device("cuda")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(layers, "TRAIN_PATCH_BYTES", 4 << 20)
+    module = module.to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (4, *([5] * (module.weight.dim() - 4)), 64, 96,
+             module.in_channels)
+    x = torch.randn(shape, generator=g, device=dev, requires_grad=True)
+    operands = [x, module.weight, module.bias]
+    grads = []
+    for _ in range(2):
+        launches = pk.CONV_PATCHES_ADJOINT.launches
+        y = layers.PatchConv.apply(*operands, module.stride, module.pad,
+                                   module.pad_mode)
+        grads.append(torch.autograd.grad(y.sum(), operands))
+        assert pk.CONV_PATCHES_ADJOINT.launches > launches + 1
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    ref = reference_conv(*operands, module.stride, module.pad,
+                         module.pad_mode)
+    want = torch.autograd.grad(ref.sum(), operands)
+    for a, e in zip(grads[0], want):
+        err = float((a - e).abs().max() / e.abs().max())
+        assert err <= 1e-4, err
+    for trains in (True, False):
+        module.requires_grad_(trains)
+        before = dict(layers.CONV_CALLS)
+        torch.autograd.grad(module(x).sum(), [x])
+        routed = {k: layers.CONV_CALLS[k] - before[k] for k in before}
+        assert routed == ({"patch": 0, "cudnn": 1, "patch_backward": 0}
+                          if trains else
+                          {"patch": 1, "cudnn": 0, "patch_backward": 1})
