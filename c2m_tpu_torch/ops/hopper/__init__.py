@@ -82,11 +82,11 @@ _SIGNATURES = {
 
 @dataclasses.dataclass(eq=False)
 class Kernel:
-    """One hand-written kernel: where it lives, what TPU kernel it replaces,
-    and how many times it was launched (its wrapper adds one per launch)."""
+    """One hand-written kernel: where it lives and how many times it was
+    launched (its wrapper adds one per launch). Its module's docstring
+    names the TPU kernel it replaces."""
     name: str
     source: str        # path in the repo
-    replaces: str      # file:line of the TPU kernel (or what stands for it)
     launches: int = 0
 
 
@@ -193,8 +193,8 @@ def require(cond: bool, msg) -> None:
 
 
 def all_kernels():
-    """Every hand-written kernel's ``Kernel`` record (name, source, the TPU
-    kernel it replaces, its launch count)."""
+    """Every hand-written kernel's ``Kernel`` record (name, source, its
+    launch count)."""
     from c2m_tpu_torch.ops.hopper import (correlation_kernel, maskwarp_banded,
                                           maskwarp_kernel, patches_kernel,
                                           splat_kernel, warp_kernels)

@@ -16,8 +16,7 @@ import torch.nn.functional as F
 
 from c2m_tpu_torch.ops import hopper
 
-CORRELATION = hopper.Kernel("correlation", "c2m_tpu_torch/csrc/correlation.cu",
-                            "c2m_tpu/ops/pallas/correlation_kernel.py:58")
+CORRELATION = hopper.Kernel("correlation", "c2m_tpu_torch/csrc/correlation.cu")
 KERNELS = (CORRELATION,)
 
 _INT32_MAX = 2 ** 31 - 1

@@ -43,8 +43,7 @@ WIN_MAX = 8192       # pixels of a region above which it is a strong zoom-out
 NODES_MAX = 2048     # the box pass keeps 20 bytes per node in 48 KB
 
 WARP_MASKS_BANDED = hopper.Kernel(
-    "warp_masks_banded", "c2m_tpu_torch/csrc/maskwarp_banded.cu",
-    "c2m_tpu/ops/pallas/maskwarp_banded.py:136")
+    "warp_masks_banded", "c2m_tpu_torch/csrc/maskwarp_banded.cu")
 KERNELS = (WARP_MASKS_BANDED,)
 
 

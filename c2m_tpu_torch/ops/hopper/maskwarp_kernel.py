@@ -23,8 +23,7 @@ from c2m_tpu_torch.ops import hopper
 INTERIOR_EPS = 1e-5
 
 WARP_MASKS_WINNER = hopper.Kernel(
-    "warp_masks_winner", "c2m_tpu_torch/csrc/maskwarp.cu",
-    "c2m_tpu/ops/pallas/maskwarp_kernel.py:72")
+    "warp_masks_winner", "c2m_tpu_torch/csrc/maskwarp.cu")
 KERNELS = (WARP_MASKS_WINNER,)
 
 

@@ -35,13 +35,9 @@ import torch
 
 from c2m_tpu_torch.ops import hopper
 
-CONV_PATCHES = hopper.Kernel(
-    "conv_patches", "c2m_tpu_torch/csrc/patches.cu",
-    "none: the convolutions the JAX package leaves to XLA")
-CONV_PATCHES_ADJOINT = hopper.Kernel(
-    "conv_patches_adjoint", "c2m_tpu_torch/csrc/patches.cu",
-    "none: the convolutions' input gradients, which the JAX package leaves "
-    "to XLA (cuDNN's dgrad and FFT backward in the port before)")
+CONV_PATCHES = hopper.Kernel("conv_patches", "c2m_tpu_torch/csrc/patches.cu")
+CONV_PATCHES_ADJOINT = hopper.Kernel("conv_patches_adjoint",
+                                     "c2m_tpu_torch/csrc/patches.cu")
 KERNELS = (CONV_PATCHES, CONV_PATCHES_ADJOINT)
 
 # an axis's padding as csrc/patches.cu numbers it

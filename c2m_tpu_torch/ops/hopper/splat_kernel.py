@@ -15,8 +15,7 @@ import torch
 
 from c2m_tpu_torch.ops import hopper
 
-SPLAT = hopper.Kernel("corresponding_map", "c2m_tpu_torch/csrc/splat.cu",
-                      "c2m_tpu/ops/pallas/splat_kernel.py:73")
+SPLAT = hopper.Kernel("corresponding_map", "c2m_tpu_torch/csrc/splat.cu")
 KERNELS = (SPLAT,)
 
 # the kernel's tile of source points (width, height) and the halo of its

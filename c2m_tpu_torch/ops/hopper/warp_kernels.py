@@ -31,18 +31,13 @@ import torch
 
 from c2m_tpu_torch.ops import hopper
 
-RESAMPLE_F32 = hopper.Kernel(
-    "resample_f32", "c2m_tpu_torch/csrc/resample.cu",
-    "c2m_tpu/ops/pallas/warp_kernels.py:130")
-RESAMPLE_BF16 = hopper.Kernel(
-    "resample_bf16", "c2m_tpu_torch/csrc/resample.cu",
-    "c2m_tpu/ops/pallas/warp_kernels.py:130")
-_BWD_OF = ("backward of c2m_tpu/ops/warp.py:195 under jax.grad "
-           "(no Pallas counterpart)")
-RESAMPLE_BWD_F32 = hopper.Kernel(
-    "resample_bwd_f32", "c2m_tpu_torch/csrc/resample_bwd.cu", _BWD_OF)
-RESAMPLE_BWD_BF16 = hopper.Kernel(
-    "resample_bwd_bf16", "c2m_tpu_torch/csrc/resample_bwd.cu", _BWD_OF)
+RESAMPLE_F32 = hopper.Kernel("resample_f32", "c2m_tpu_torch/csrc/resample.cu")
+RESAMPLE_BF16 = hopper.Kernel("resample_bf16",
+                              "c2m_tpu_torch/csrc/resample.cu")
+RESAMPLE_BWD_F32 = hopper.Kernel("resample_bwd_f32",
+                                 "c2m_tpu_torch/csrc/resample_bwd.cu")
+RESAMPLE_BWD_BF16 = hopper.Kernel("resample_bwd_bf16",
+                                  "c2m_tpu_torch/csrc/resample_bwd.cu")
 KERNELS = (RESAMPLE_F32, RESAMPLE_BF16, RESAMPLE_BWD_F32, RESAMPLE_BWD_BF16)
 
 

@@ -1,51 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths once on one NVIDIA GPU: serving and
-the train step at the journal config (128x256) and at the long-horizon
-config (512x1024), FlowNet2 on-the-fly flow feeding a train step, the
-program around the step (trainer, checkpoint and resume, evaluator,
-serving artifact) at the journal config, the KITTI and SPADE generator
-variants, the trainer over a NCCL process group, the evaluation's metric
-nets (InceptionV3, I3D, YOLOv3) with the evaluator and entry points that
-run them, the preprocessing chain, and the tools: reference-checkpoint
-conversion, artifact export and the synthetic dataset on disk.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check
+what they compute: serving and the train step at the journal config
+(128x256) and at the long-horizon config (512x1024), FlowNet2 on-the-fly
+flow feeding a train step, the program around the step (trainer,
+checkpoint and resume, evaluator, serving artifact) at the journal config,
+the KITTI and SPADE generator variants, the trainer over a NCCL process
+group, the evaluation's metric nets (InceptionV3, I3D, YOLOv3) with the
+evaluator and entry points that run them, the preprocessing chain, the
+tools (reference-checkpoint conversion, artifact export and the synthetic
+dataset on disk), and the patch route of the float32 convolutions.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py
+
+It checks values, never times: the port's performance is measured by
+``perfbench/run.py``. Each kernel against its plain version is
+``tests/test_torch_kernels_cuda.py`` (cuda-marked); phase 3 runs that
+file's cases at the paths' shapes. Wall-clock lines only say how long a
+call or a phase took.
 
 Phases (any failure raises and the script exits non-zero):
   1. torch / CUDA versions and the card's name and power limit;
   2. build the hand-written kernels from c2m_tpu_torch/csrc (nvcc, ctypes);
-  3. each kernel against its plain PyTorch version on the card at the
-     shapes the paths give it (journal serving: B=12, T=5, N=16, 128x256;
-     journal train: 15 folded frames; the dataset tools' one clip a call:
-     K2 at B=1, K4 at 5 frames and K5 and K4 at one frame pair; long horizon: B=4 and B=1, T=10, N=24,
-     512x1024, with every decoder skip of K1 at 10 and 40 folded frames;
-     FlowNetC's map [30,16,32,256] and the 30 frame pairs of K4's
-     confidence), forward and, for K1, backward
-     against autograd of the plain version, with median times (CUDA events,
-     after warm-up), the least time the card could take (bound) and, where
-     one PyTorch call computes the same function (F.grid_sample for K1),
-     that call's time. K1 reads one image for the T frames of a clip where
-     the paths do (decoder skips, previews, warped loss: ``frames``), and
-     is held there to the forward of the repeated image bit for bit. K1
-     forward and K4 are held and timed on two kinds of
-     flow: independent noise per pixel (the row of record) and a smooth flow
-     as a request's dense flow looks; their times are given twice, around
-     one call (the wrapper's host time included, as for every kernel) and
-     for the device alone (a CUDA graph of 20 launches). K1 backward is
-     timed three times (around one call, through autograd, device alone)
-     and, device alone, in turns with its first version (route scalar64)
-     on the same inputs, which it must not trail; its flow and mask
-     gradients, stored without atomics, must repeat bit for bit. Both also
-     run once
-     at what the paths never give them (every route of K1, unaligned views,
-     1-wide images; K4 at flows longer than its halo, ragged sizes, NaN and
-     far-out coordinates). K2 and K3 run on the same inputs, equal to each
-     other, timed around one call and device alone in turns, with K3's
-     passes apart: at both kernels' path shapes, for GT-like, GNN-like and
-     window-overflowing thetas, on image-wide objects and with N near K3's
-     node limit; K2's bound counts the (pixel, node) pairs its function
-     needs with the nodes visited last to first, from the plain winner. K5
-     is timed around one call and device alone;
+  3. each kernel against its plain version at every shape the paths give
+     it: the ``PATH_*`` cases of tests/test_torch_kernels_cuda.py (K1
+     forward and backward, K2, K3, K4, K5), TF32 off;
   4. a ServingModel at the journal config's full width
      (configs/c2m_journal_cityscapes.yaml, bfloat16 compute, batch bucket
      12), random weights from a seeded torch.Generator, answering three
@@ -74,11 +52,11 @@ Phases (any failure raises and the script exits non-zero):
   9. a ServingModel at configs/c2m_long_horizon.yaml, full width and depth
      (512x1024, 1 + 10 frames, 24 nodes, bfloat16 compute), buckets (1, 4):
      batch 4 with GT thetas, batch 1 and batch 3 (padded into 4) on the
-     click path. K3 launched and K2 not; latency and peak memory;
+     click path. K3 launched and K2 not; peak memory;
  10. the rasterizer alone at one 512x1024 clip, card (K3, K4) vs CPU;
  11. two train steps at the long-horizon config, batch 1 (the YAML's 16 is
      one clip per chip of a 16-chip mesh), with the checks of phase 6; K1
-     forward and backward, K3 and K4 launched; step time and peak memory;
+     forward and backward, K3 and K4 launched; peak memory;
  12. train -> checkpoint -> resume -> eval -> export at the journal config's
      full width, in a temporary directory, on synthetic clips made by the
      port's SyntheticDataset on the card and held in host memory: a
@@ -88,9 +66,9 @@ Phases (any failure raises and the script exits non-zero):
      and saves, and a fresh Trainer with continue_train resumes: the
      checkpoint round trip bit for bit, the resumed steps on the unbroken
      run's batches, lrs and generator state, their metrics within a
-     multiple of the card's own spread (steps 3 and 4 taken twice from the
-     saved state); the trainer's ms per step against bare steps on the
-     same batches; the Evaluator over 2 val batches of 12 (files written,
+     multiple of the card's own spread (steps 3 and 4 taken three times
+     from the saved state); the rest of the epoch and a second one with the
+     cadences off; the Evaluator over 2 val batches of 12 (files written,
      FID / FVD NaN without embedders) and a second pass that loads the
      saved clicks; export_artifact -> ServingModel.from_artifact against
      the trained model's inference; one trainer step with on-the-fly
@@ -119,27 +97,24 @@ Phases (any failure raises and the script exits non-zero):
      into npz files of the JAX converters' format and read back bit for
      bit: InceptionV3 [2,299,299,3], I3D [2,5,224,224,3] (both endpoints)
      and YOLOv3 [1,416,416,3] card vs CPU in float32 (TF32 off) within
-     TOL_NET; each net's time per batch of 16 (CUDA events, device busy
-     time, the bound of its counted operations) and NMS host ms per image;
-     the Evaluator with the three nets from INCEPTION_WEIGHTS / I3D_WEIGHTS
-     / YOLO_WEIGHTS over 2 val batches of 12 (K1, K2, K4 launched; the
-     detector on 2 x 2 x 12 last frames; finite FID and FVD) against phase
-     12's ms per batch without them, and peak memory; eval_torch.py as a
-     subprocess on a saved checkpoint and the synthetic val set, and
-     yolo_detect_torch.py on two frames (a .txt and a .png each);
+     TOL_NET; the Evaluator with the three nets from INCEPTION_WEIGHTS /
+     I3D_WEIGHTS / YOLO_WEIGHTS over 2 val batches of 12 (K1, K2, K4
+     launched; the detector on 2 x 2 x 12 last frames; finite FID and
+     FVD), and peak memory; eval_torch.py as a subprocess on a saved
+     checkpoint and the synthetic val set, and yolo_detect_torch.py on
+     two frames (a .txt and a .png each);
  16. the preprocessing chain, seeded weights (BatchNorm statistics from one
      forward of the inputs each net then sees, residual branches damped:
      damp_residuals_) through the bridge into npz files of the JAX
      converters' format, read back bit for bit: Panoptic-DeepLab card vs
      CPU in float32 (TF32 off) at [1,512,1024,3] on all three heads within
      TOL_PRE_NET, postprocess card vs CPU equal map for map, then at
-     Cityscapes' full frame [1,1024,2048,3] on the card: ms per frame
-     (around the call, device time), postprocess ms, centers, peak memory,
-     the share of semantic pixels TF32 changes; SiamRPN++ features and
-     heads card vs CPU, one tracker card vs CPU over 9 frames of 1024x2048
-     (the same anchors, boxes within TOL_BOX px; ms per track() call) and
-     evaluate_tracker (OPE) with it; then the CLIs as subprocesses on a
-     synthetic city of 30 raw 1024x2048 frames with a moving car:
+     Cityscapes' full frame [1,1024,2048,3] on the card: semantic ids,
+     centers, peak memory, the share of semantic pixels TF32 changes;
+     SiamRPN++ features and heads card vs CPU, one tracker card vs CPU
+     over 9 frames of 1024x2048 (the same anchors, boxes within TOL_BOX
+     px) and evaluate_tracker (OPE) with it; then the CLIs as subprocesses
+     on a synthetic city of 30 raw 1024x2048 frames with a moving car:
      generate_segmentation (2 frames), generate_trajectories (9 rows with
      the crafted motion), tools/preprocess_images.py and generate_lists.py
      to the journal 128x256, precompute_flow at the journal config (K5 and
@@ -160,19 +135,17 @@ Phases (any failure raises and the script exits non-zero):
      seeded model served directly; ``make_synthetic_dataset`` on the card
      (one K2 and two K4 launches a clip, counted in its process), its tree
      held to the same tool's run on the CPU (other files byte for byte,
-     flows and occlusions within phase 10's gates), then eval_torch.py on the converted job dir and train_torch.py for 2 steps,
-     both reading that tree from disk; upfirdn2d and bias_act card vs CPU;
+     flows and occlusions within phase 10's gates), then eval_torch.py on
+     the converted job dir and train_torch.py for 2 steps, both reading
+     that tree from disk; upfirdn2d and bias_act card vs CPU;
  18. the patch route of the float32 convolutions (nn/layers.conv_route) at
      the journal config in float32, TF32 off: a ServingModel with buckets
      1 and 12 answers a request of each size with every Conv / Conv3d call
-     recorded (its route, the share the patch route takes, the gather's
-     launches, which a 12-clip request must make); at each conv shape of
-     those requests the gather kernel against its plain version (bit for
-     bit, first and last chunk), the patch conv against the cuDNN conv and
-     both against float64 (max error over the largest output), and device
-     times by kernel of both routes (cuDNN's top kernel, the gather, the
-     GEMM) beside the gather's bound and the GFLOP; a 12-clip inference
-     on both routes in turns;
+     recorded: every call takes the patch route, and a 12-clip request
+     launches the gather; at each conv shape of those requests the gather
+     kernel against its plain version (bit for bit, first and last chunk)
+     and the patch conv against the cuDNN conv within TOL_PATCH_CONV, both
+     against float64 (printed);
  19. the patch route's backward (nn/layers.PatchConv) in the float32 train
      step at the journal config, TF32 off: one step with every Conv /
      Conv3d call recorded: a trained conv's call must take cuDNN, every
@@ -180,17 +153,13 @@ Phases (any failure raises and the script exits non-zero):
      needs a gradient and whose output reaches a loss one
      ``patch_backward``, with the adjoint kernel launched; at each conv
      shape of that step the forward, input gradient and weight gradient
-     (where the step needs them) on cuDNN and on the patch route, each part
-     alone on the device (a CUDA graph of the call on one stream), each
-     side's gap against float64, and the adjoint kernel alone beside its
-     byte bound.
-With --profile, torch.profiler splits one warm train step and one warm
-request of each config, the full-frame Panoptic-DeepLab and one track()
-call by operator and by kernel (printed).
+     (where the step needs them) on cuDNN and on the patch route, each
+     side within TOL_PATCH_CONV of float64.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Exits non-zero at once when no
-CUDA device is visible. Imports nothing of JAX and nothing of c2m_tpu.
+The line before the last is a JSON object with each kernel's name, source
+and launches by path; the last line is {"ok": true, "device": {...}}.
+Exits non-zero at once when no CUDA device is visible. Imports nothing of
+JAX and nothing of c2m_tpu.
 """
 
 from __future__ import annotations
@@ -198,9 +167,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import importlib.util
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -209,6 +178,7 @@ import numpy as np
 import torch
 
 from c2m_tpu_torch.device import full_float32
+from c2m_tpu_torch.ops.hopper import all_kernels
 
 BUCKET = 12
 SEED = 0
@@ -218,12 +188,7 @@ LONG_BUCKETS = (1, 4)
 KITTI_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "c2m_kitti.yaml")
 
-# tolerances of kernel vs plain version on the card, and why
-TOL_F32 = 1e-5          # same float32 ops; the plain CUDA ops may contract
-TOL_BF16 = 2.0 ** -8    # one bf16 rounding of the same float32 value in [0,1]
-TOL_SPLAT = 1e-5        # atomics reorder float32 sums of masses <= ~4
-TOL_CORR = 1e-5         # the same float32 products summed over 256 channels
-                        # in another order; means of order 1
+# tolerances of the card against the CPU, and why
 TOL_FLOWNET = 1e-3      # FlowNet2 card vs CPU, float32, TF32 off: ~100 conv
                         # layers summed in other orders; flows of order 1 px
 TOL_OCC = 1e-3          # share of occlusion pixels that may differ card vs
@@ -233,13 +198,6 @@ TOL_FLIP = 1e-4         # share of {0,1} pixels allowed to flip at a threshold
 TOL_SLICE = 5e-4        # generated frames, card vs CPU (float32 conv sums)
 TOL_PAD = 2.0 ** -9     # padded vs unpadded rows: cuDNN may pick other bf16
                         # conv algorithms per batch size; one bf16 ulp at 0.5
-# K1 backward vs autograd of the plain version, relative to the largest
-# reference gradient: float atomics and warp shuffles add the same float32
-# terms in another order (up to 256 channels x 4 taps per sum); a bfloat16
-# image gradient is one rounding of such a float32 sum, so it may land on
-# the neighbouring bfloat16 value (spacing 2^-7 relative)
-TOL_BWD_F32 = 2e-5
-TOL_BWD_BF16 = 2.0 ** -7
 # train model, card vs CPU in float32 (TF32 off): loss terms relative (plus
 # 1e-5 abs); gradients per optimizer group by the noise class of train-mode
 # BatchNorm backward under float32 reassociation (cos, norm ratio)
@@ -301,10 +259,6 @@ TOL_BOX = 1e-3
 # for each error being taken relative to its own side's outputs
 TOL_F64_MULTIPLE = 3.0
 
-# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12      # float32 outside the tensor cores: all these kernels
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -317,784 +271,69 @@ def release_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
-    """Median milliseconds of one call on the device alone: ``launches``
-    calls recorded into one CUDA graph and replayed, so that the host's time
-    to reach the launch (checks, allocation, ctypes) is not in it. For the
-    shapes whose kernel is shorter than that host time."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    return time_ms(graph.replay, reps=reps, warmup=1) / launches
-
-
-def kernel_split(fn, names: dict, calls: int = 5) -> dict:
-    """Device milliseconds per call of each kernel ``fn`` launches, by a
-    substring of its name (``names``: label -> substring), from
-    torch.profiler over ``calls`` calls after one warm-up."""
-    by_kernel = device_kernels(fn, calls)
-    return {label: sum(ms for key, ms in by_kernel.items() if part in key)
-            for label, part in names.items()}
-
-
-def device_kernels(fn, calls: int = 3) -> dict:
-    """Device milliseconds per call of each kernel ``fn`` launches, by name,
-    from torch.profiler over ``calls`` calls after one warm-up."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-            and e.self_device_time_total > 0}
-
-
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    float32 operations over the CUDA-core peak, whichever is larger."""
-    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return {"bound_ms": max(by, op),
-            "bound_by": "bytes" if by >= op else "operations"}
+def load_test_module(name: str):
+    """``tests/<name>.py`` loaded by its path: a ``tests`` package installed
+    on the machine would shadow the repository's tests directory, which has
+    no __init__.py."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+# the seeding helpers the CPU parity tests share (torch only)
+_SEEDED = load_test_module("torch_seeded_nets")
+calibrate_bn_, damp_residuals_, Pair = (_SEEDED.calibrate_bn_,
+                                        _SEEDED.damp_residuals_, _SEEDED.Pair)
 
 
-def grid_of(flow: torch.Tensor) -> torch.Tensor:
-    """The normalized grid for which F.grid_sample(padding_mode='border',
-    align_corners=False) computes K1's function."""
-    _, h, w, _ = flow.shape
-    xs = torch.arange(w, dtype=torch.float32, device=flow.device)
-    ys = torch.arange(h, dtype=torch.float32, device=flow.device)
-    sx = (xs[None, None, :] + flow[..., 0]) * (w / (w - 1.0)) - 0.5
-    sy = (ys[None, :, None] + flow[..., 1]) * (h / (h - 1.0)) - 0.5
-    return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], dim=-1)
+# the kernel cases at the paths' shapes (phase 3) and the smooth flow they
+# and phase 13 share
+_KERNEL_CASES = load_test_module("test_torch_kernels_cuda")
+smooth_flow = _KERNEL_CASES.smooth_flow
 
 
-def smooth_flow(g, b, h, w, dev, px: float = 8.0) -> torch.Tensor:
-    """A flow as a request's dense flow looks: noise of +-px pixels at 1/16
-    of the resolution, bilinearly enlarged to [b, h, w, 2]."""
-    import torch.nn.functional as F
-    low = (torch.rand(b, 2, max(2, h // 16), max(2, w // 16), generator=g)
-           - 0.5) * 2 * px
-    return F.interpolate(low.to(dev), size=(h, w), mode="bilinear",
-                         align_corners=False).permute(0, 2, 3, 1).contiguous()
-
-
-def grid_coords(flow: torch.Tensor) -> torch.Tensor:
-    """The pixel grid plus flow [b, h, w, 2]: K4's target coordinates."""
-    _, h, w, _ = flow.shape
-    xs = torch.arange(w, device=flow.device, dtype=torch.float32)
-    ys = torch.arange(h, device=flow.device, dtype=torch.float32)
-    base = torch.stack([xs[None].expand(h, w), ys[:, None].expand(h, w)], -1)
-    return (base[None] + flow).contiguous()
-
-
-def splat_check(sk, splat, coords, piled: bool = False):
-    """K4 against its plain version on coords: (max |diff|, share of
-    0.5-threshold flips, the largest mass, the kernel's output, the two
-    callables). TOL_SPLAT is absolute and was set for the masses that
-    independent noise leaves, up to ~4: about 20 float32 steps there.
-    ``piled``: a smooth flow piles tens of points onto a pixel where it
-    converges, and a float32 sum added in another order differs by steps of
-    its own size; a pixel of mass m above 4 is then held to the same number
-    of steps, TOL_SPLAT * m / 4. The difference returned is absolute either
-    way."""
-    run = lambda: sk.corresponding_map(coords)                  # noqa: E731
-    plain = lambda: sk.corresponding_map_plain(coords)          # noqa: E731
-    got, want = run(), plain()
-    diff = (got - want).abs()
-    tol = torch.full_like(want, TOL_SPLAT)
-    if piled:
-        tol = tol * (want / 4.0).clamp(min=1.0)
-    flips = (splat.clip_mask(got.clamp(0, 1))
-             != splat.clip_mask(want.clamp(0, 1))).float().mean().item()
-    err, mass = diff.max().item(), want.max().item()
-    check(bool((diff <= tol).all()) and flips <= TOL_FLIP,
-          f"splat {list(coords.shape)}: max|diff| {err} at masses up to "
-          f"{mass} / flips {flips} over tolerance")
-    return err, flips, mass, got, run, plain
-
-
-def odd_cases(dev, g):
-    """K1 forward and K4 once (untimed) at what the paths never give them:
-    every route of K1 (channel counts that do and do not fill 16 bytes,
-    1-wide and 1-high images, a view that is not 16-byte aligned), exact
-    against the plain version in both types; K4 at flows longer than the
-    halo, sizes that are no multiple of the tile or of 4, NaN, infinite and
-    far-out coordinates, and coordinates that are not 8-byte aligned."""
-    from c2m_tpu_torch.ops import splat
-    from c2m_tpu_torch.ops.hopper import splat_kernel as sk
-    from c2m_tpu_torch.ops.hopper import warp_kernels as wk
-    seen = set()
-    shapes = [(2, 17, 33, c) for c in (1, 2, 3, 4, 5, 8, 12, 64, 72, 256, 512)]
-    shapes += [(2, 6, 1, 3), (2, 1, 9, 3), (3, 1, 1, 8), (2, 5, 1, 64)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape in shapes:
-            for aligned in (True, False):
-                n = int(np.prod(shape))
-                buf = torch.rand(n + 1, generator=g).to(dtype).to(dev)
-                img = buf[0 if aligned else 1:][:n].view(shape)
-                flow = ((torch.rand(*shape[:3], 2, generator=g) - 0.5) * 16
-                        ).to(dev)
-                mask = torch.rand(*shape[:3], 1, generator=g).to(dev)
-                check(img.is_contiguous()
-                      and (img.data_ptr() % 16 == 0) == aligned, "odd view")
-                seen.add(wk.resample_route(dtype, shape, aligned))
-                for m in (None, mask):
-                    got = (wk.resample(img, flow) if m is None
-                           else wk.resample_masked(img, flow, m))
-                    want = wk.resample_plain(img, flow, m)
-                    err = (got.float() - want.float()).abs().max().item()
-                    check(err == 0.0, f"K1 {dtype} {shape} aligned={aligned} "
-                          f"masked={m is not None}: max|diff| {err} != 0")
-    # every route by name on one shape each takes, the 64-bit one included
-    img = torch.rand(2, 17, 33, 4, generator=g).to(dev)
-    flow = ((torch.rand(2, 17, 33, 2, generator=g) - 0.5) * 16).to(dev)
-    want = wk.resample_plain(img, flow, None)
-    for route in wk.ROUTES:
-        check(torch.equal(wk._launch(img, flow, None, route=route), want),
-              f"K1 route {route} differs from the plain version")
-    check(seen == {"vec", "pixel", "scalar"}, f"K1 routes seen: {seen}")
-    log(f"  K1 forward, {len(shapes)} odd shapes x 2 types x (un)aligned x "
-        f"(un)masked and each of the routes {sorted(wk.ROUTES)} by name: "
-        f"max|diff| 0")
-
-    tw, th = sk.TILE
-    for b, h, w, px in ((2, 50, 70, 3.0), (2, 50, 70, 4.0 * sk.HALO),
-                        (1, th + 1, tw + 4, 10.0), (3, 2 * th, 2 * tw, 40.0),
-                        (2, 7, 5, 2.0)):
-        flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 2 * px).to(dev)
-        coords = grid_coords(flow)
-        splat_check(sk, splat, coords)
-        # coordinates that add nothing, whatever they hold
-        clean = sk.corresponding_map(coords)
-        dirty = coords.clone()
-        dirty[0, 3, 4] = float("nan")
-        dirty[0, 5, 3, 0] = float("inf")
-        dirty[0, 6, 2, 1] = -1e30
-        dirty[-1, 2, 1] = torch.tensor([3e9, 1.0], device=dev)
-        lost = coords.clone()
-        for bi, y, x in ((0, 3, 4), (0, 5, 3), (0, 6, 2), (b - 1, 2, 1)):
-            lost[bi, y, x] = -5.0                # off the image: adds nothing
-        err = (sk.corresponding_map(dirty)
-               - sk.corresponding_map(lost)).abs().max().item()
-        check(err <= TOL_SPLAT and bool(torch.isfinite(clean).all()),
-              f"K4 [{b},{h},{w}]: NaN / infinite / far coordinates added "
-              f"{err}")
-        buf = torch.zeros(coords.numel() + 1, device=dev)
-        odd = buf[1:].view(coords.shape).copy_(coords)
-        check(odd.data_ptr() % 8 != 0, "odd view")
-        splat_check(sk, splat, odd)
-    log("  K4, flows shorter and longer than the halo, ragged sizes, NaN / "
-        "infinite / far-out and unaligned coordinates: within tolerance")
-
-
-def phase_kernels(dev):
-    """Phase 3: kernel vs plain version at the two paths' shapes."""
-    import torch.nn.functional as F
-    from c2m_tpu_torch.ops import splat
-    from c2m_tpu_torch.ops.hopper import correlation_kernel as ck
-    from c2m_tpu_torch.ops.hopper import maskwarp_banded as mb
-    from c2m_tpu_torch.ops.hopper import maskwarp_kernel as mk
-    from c2m_tpu_torch.ops.hopper import splat_kernel as sk
-    from c2m_tpu_torch.ops.hopper import warp_kernels as wk
-    g = torch.Generator().manual_seed(SEED)
-    rows = {}
-
-    def inputs(dtype, shape, masked, frames=1):
-        """An image of shape[0] / frames rows; flow and mask of shape[0]."""
-        b, h, w, c = shape
-        img = torch.rand(b // frames, h, w, c, generator=g).to(dtype).to(dev)
-        flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 16).to(dev)
-        mask = torch.rand(b, h, w, 1, generator=g).to(dev) if masked else None
-        return img, flow, mask
-
-    def resample_fns(img, flow, mask, frames=1):
-        """The kernel, its plain version and the library call (yardstick
-        only, the port never calls it: the warp without the mask product,
-        grid, NCHW view and the image repeated for its frames made
-        beforehand) on one set of inputs."""
-        if mask is not None:
-            run = lambda: wk.resample_masked(img, flow, mask,   # noqa: E731
-                                             frames=frames)
-        else:
-            run = lambda: wk.resample(img, flow, frames=frames)  # noqa: E731
-        plain = lambda: wk.resample_plain(img, flow, mask,      # noqa: E731
-                                          frames)
-        grid = grid_of(flow).to(img.dtype)
-        nchw = img.repeat_interleave(frames, 0).permute(0, 3, 1, 2)
-        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear",  # noqa: E731
-                                    padding_mode="border", align_corners=False)
-        return run, plain, lib
-
-    def resample_case(kernel, dtype, shape, masked, role, frames=1):
-        """K1 forward at the output shape ``shape``, the image passed once
-        for ``frames`` rows of it."""
-        img, flow, mask = inputs(dtype, shape, masked, frames)
-        run, plain, lib = resample_fns(img, flow, mask, frames)
-        err = (run().float() - plain().float()).abs().max().item()
-        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-        if frames > 1:
-            # exactly what the repeated image gives at frames=1
-            rep = img.repeat_interleave(frames, 0)
-            same = torch.equal(run(), resample_fns(rep, flow, mask)[0]())
-            check(same, f"{kernel.name} {shape} frames={frames} differs from "
-                  f"the repeated image")
-        ms, plain_ms, lib_ms = time_ms(run), time_ms(plain), time_ms(lib)
-        # the same image and mask under a smooth flow, as a request's dense
-        # flow looks (the noise above stays the row of record)
-        s_run, s_plain, s_lib = resample_fns(
-            img, smooth_flow(g, shape[0], shape[1], shape[2], dev), mask,
-            frames)
-        s_err = (s_run().float() - s_plain().float()).abs().max().item()
-        smooth = {"max_abs_err": s_err, "ms": time_ms(s_run),
-                  "library_ms": time_ms(s_lib), "device_ms": device_ms(s_run),
-                  "library_device_ms": device_ms(s_lib)}
-        dev_ms, lib_dev_ms = device_ms(run), device_ms(lib)
-        out_bytes = nbytes(img) * frames
-        n = int(np.prod(shape))
-        pix = n // shape[3]
-        bd = bound(nbytes(img, flow, mask) + out_bytes, 16 * pix + 10 * n)
-        log(f"  {kernel.name} {role} {list(shape)} frames={frames} "
-            f"masked={masked} route {wk.resample_route(dtype, shape)}: "
-            f"max|diff| {err:.3g} (tol {tol:.3g})  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  grid_sample {lib_ms:.4f} ms  bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  device alone: "
-            f"kernel {dev_ms:.4f}  grid_sample {lib_dev_ms:.4f};  smooth "
-            f"flow: max|diff| {s_err:.3g}  kernel {smooth['ms']:.4f} ms  "
-            f"grid_sample {smooth['library_ms']:.4f} ms  device alone: "
-            f"kernel {smooth['device_ms']:.4f}  grid_sample "
-            f"{smooth['library_device_ms']:.4f}")
-        check(err <= tol and s_err <= tol,
-              f"{kernel.name} {shape}: max|diff| {err}, {s_err} > {tol}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "device_ms": dev_ms,
-                "library_device_ms": lib_dev_ms, "shape": list(shape),
-                "frames": frames, "layout": wk.resample_route(dtype, shape),
-                **bd, "smooth": smooth}
-
-    def backward_case(kernel, dtype, shape, masked, needs, role, frames=1):
-        """K1's gradients (needs: which of image, flow, mask) at the output
-        shape ``shape``, the image passed once for ``frames`` rows, against
-        autograd of the plain version and against F.grid_sample's (on the
-        image repeated for its frames, the sum over them included)."""
-        img, flow, mask = inputs(dtype, shape, masked, frames)
-        gout = torch.randn(shape, generator=g).to(dtype).to(dev)
-        names = [n for n, need in zip(("image", "flow", "mask"), needs) if need]
-        route = wk.resample_backward_route(dtype, shape)
-
-        def leaves():
-            ts = {"image": img, "flow": flow, "mask": mask}
-            ts = {k: (v.detach().clone().requires_grad_(k in names)
-                      if v is not None else None) for k, v in ts.items()}
-            return ts, [ts[k] for k in names]
-
-        def grads_of(fn):
-            ts, wrt = leaves()
-            out = fn(ts["image"], ts["flow"], ts["mask"])
-            return lambda: torch.autograd.grad(out, wrt, gout,   # noqa: E731
-                                               retain_graph=True)
-
-        def kernel_fn(i, f, m):
-            return (wk.resample_masked(i, f, m, frames=frames) if masked
-                    else wk.resample(i, f, frames=frames))
-
-        def plain_fn(i, f, m):
-            return wk.resample_plain(i, f, m, frames)
-
-        def lib_fn(i, f, m):
-            out = F.grid_sample(i.repeat_interleave(frames, 0).permute(
-                0, 3, 1, 2), grid_of(f).to(dtype), mode="bilinear",
-                padding_mode="border", align_corners=False).permute(0, 2, 3, 1)
-            return out * m.to(dtype) if m is not None else out
-
-        run, plain, lib = (grads_of(kernel_fn), grads_of(plain_fn),
-                           grads_of(lib_fn))
-        # the forward that the backward differentiates, on the same inputs
-        with torch.no_grad():
-            fwd_err = (kernel_fn(img, flow, mask).float()
-                       - plain_fn(img, flow, mask).float()
-                       ).abs().max().item()
-        fwd_tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-        check(fwd_err <= fwd_tol, f"{kernel.name} {shape}: forward max|diff| "
-              f"{fwd_err} > {fwd_tol}")
-        worst = 0.0
-        for name, got, want in zip(names, run(), plain()):
-            check(got.dtype == want.dtype and got.shape == want.shape,
-                  f"{kernel.name} {shape}: grad {name} dtype/shape")
-            scale = max(want.float().abs().max().item(), 1e-6)
-            err = (got.float() - want.float()).abs().max().item() / scale
-            tol = (TOL_BWD_BF16 if name == "image" and dtype == torch.bfloat16
-                   else TOL_BWD_F32)
-            log(f"  {kernel.name} {role} {list(shape)} d/d{name}: max|diff| "
-                f"{err:.3g} of the largest gradient (tol {tol:.3g})")
-            check(err <= tol, f"{kernel.name} {shape} d/d{name}: {err} > {tol}")
-            worst = max(worst, err)
-        # the wrapper alone (zeroed buffers, the kernel, one cast), then the
-        # same through autograd, as the train step reaches it; the first
-        # version of the kernel (route scalar64) on the same inputs
-        def direct(r=None):
-            return wk._launch_backward(gout, img, flow, mask, *needs, frames,
-                                       route=r)
-
-        first, again = direct(), direct()
-        if route != "scalar64":
-            # the flow and mask gradients are stored, not accumulated: equal
-            # run to run
-            for k in (1, 2):
-                check(first[k] is None or torch.equal(first[k], again[k]),
-                      f"{kernel.name} {shape}: gradient {k} differs between "
-                      f"two runs")
-        ms, autograd_ms = time_ms(direct), time_ms(run)
-        plain_ms, lib_ms = time_ms(plain, reps=10), time_ms(lib)
-        old = lambda: direct("scalar64")                        # noqa: E731
-        turns = [device_ms(old), device_ms(direct), device_ms(direct),
-                 device_ms(old)]
-        dev_ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-        # the wrapper's device work by kernel: the zero-fill, the kernel, the
-        # cast
-        parts = {"fill": "Fill", "kernel": "resample_bwd", "cast": "copy"}
-        split, old_split = kernel_split(direct, parts), kernel_split(old, parts)
-        n = int(np.prod(shape))
-        pix = n // shape[3]
-        need_taps = needs[1] or needs[2]
-        moved = (nbytes(gout, flow, mask) + (nbytes(img) if need_taps else 0)
-                 + (nbytes(img) if needs[0] else 0)
-                 + (nbytes(flow) if needs[1] else 0)
-                 + (nbytes(mask) if needs[2] else 0))
-        bd = bound(moved, 16 * pix + 25 * n)
-        log(f"  {kernel.name} {role} {list(shape)} frames={frames} route "
-            f"{route} grads {names}: kernel {ms:.4f} ms ({autograd_ms:.4f} "
-            f"through autograd; device alone {dev_ms:.4f}, first version "
-            f"{old_ms:.4f} in turns {[round(t, 4) for t in turns]}; by "
-            f"kernel {({k: round(v, 4) for k, v in split.items()})}, first "
-            f"version's "
-            f"{({k: round(v, 4) for k, v in old_split.items()})})  plain "
-            f"autograd {plain_ms:.4f} ms  grid_sample backward {lib_ms:.4f} "
-            f"ms  bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-        check(dev_ms <= 1.1 * old_ms, f"{kernel.name} {shape} frames={frames}"
-              f": device alone {dev_ms} slower than its first version "
-              f"{old_ms}")
-        return {"max_abs_err": worst, "ms": ms, "autograd_ms": autograd_ms,
-                "device_ms": dev_ms, "first_version_device_ms": old_ms,
-                "device_by_kernel_ms": split,
-                "first_version_by_kernel_ms": old_split,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "shape": list(shape), "frames": frames, "layout": route,
-                "err": "max |diff| over the largest reference gradient", **bd}
-
-    log("[phase 3] kernels vs plain versions on the card")
-    odd_cases(dev, g)
-    # the journal config's four decoder skips (the appearance features of
-    # a clip, passed once for its 5 frames): with the bottleneck, the five
-    # bf16 launches of a request (60 folded frames) or a step (15)
-    skips = [(32, 64, 64), (16, 32, 128), (8, 16, 256), (4, 8, 512)]
-    serving_skips = [
-        resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (60, *hwc), True,
-                      "decoder skip", frames=5) for hwc in skips]
-    for hwc in skips:
-        resample_case(wk.RESAMPLE_F32, torch.float32, (60, *hwc), True,
-                      "decoder skip", frames=5)
-    rows["resample_bf16"] = resample_case(
-        wk.RESAMPLE_BF16, torch.bfloat16, (60, 16, 32, 256), True,
-        "generator bottleneck")
-    rows["resample_bf16"]["serving_skips"] = serving_skips
-    resample_case(wk.RESAMPLE_F32, torch.float32, (60, 16, 32, 256), True,
-                  "generator bottleneck")
-    rows["resample_f32"] = resample_case(
-        wk.RESAMPLE_F32, torch.float32, (60, 128, 256, 3), False, "previews",
-        frames=5)
-
-    # K1 forward at the train step's shapes (batch 3 x 5 frames folded)
-    train = {}
-    rows["resample_bf16"]["train_skips"] = [
-        resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (15, *hwc), True,
-                      "train decoder skip", frames=5) for hwc in skips]
-    train["resample_bf16"] = resample_case(
-        wk.RESAMPLE_BF16, torch.bfloat16, (15, 16, 32, 256), True,
-        "train generator bottleneck")
-    train["resample_f32"] = resample_case(
-        wk.RESAMPLE_F32, torch.float32, (15, 128, 256, 3), False,
-        "train warped loss and previews", frames=5)
-    # the step also warps its flows by its flows (the flow consistency)
-    train["resample_f32"]["flow_consistency"] = resample_case(
-        wk.RESAMPLE_F32, torch.float32, (15, 128, 256, 2), False,
-        "train flow consistency")
-
-    # K1 backward at the same shapes; the skips also at frames=1 (the image
-    # repeated for its frames, as callers passed it before frames existed)
-    rows["resample_bwd_bf16"] = backward_case(
-        wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, 16, 32, 256), True,
-        (True, True, True), "generator bottleneck")
-    rows["resample_bwd_bf16"]["train_skips"] = [
-        backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, *hwc), True,
-                      (True, False, False), "decoder skip", frames)
-        for frames in (5, 1) for hwc in skips]
-    rows["resample_bwd_bf16"]["unmasked"] = backward_case(
-        wk.RESAMPLE_BWD_BF16, torch.bfloat16, (15, 16, 32, 256), False,
-        (True, True, False), "unmasked")
-    rows["resample_bwd_f32"] = backward_case(
-        wk.RESAMPLE_BWD_F32, torch.float32, (15, 128, 256, 3), False,
-        (False, True, False), "warped loss", frames=5)
-    rows["resample_bwd_f32"]["bottleneck"] = backward_case(
-        wk.RESAMPLE_BWD_F32, torch.float32, (15, 16, 32, 256), True,
-        (True, True, True), "generator bottleneck")
-    rows["resample_bwd_f32"]["flow_consistency"] = backward_case(
-        wk.RESAMPLE_BWD_F32, torch.float32, (15, 128, 256, 2), False,
-        (True, True, False), "flow consistency")
-
-    def k2_and_k3(args, tol, label):
-        """K2 and K3 on the same inputs: K3 equal to K2, both within
-        ``tol`` of the plain winner; times around one call, and device
-        alone in turns (K2, K3, K3, K2); K3's passes apart (torch.profiler,
-        device time by kernel); the (tile, node) pairs and tiles K3
-        visits."""
-        b, h, w = args[0].shape
-        n, t = args[3].shape[1:3]
-        k2 = lambda: mk.warp_masks_winner(*args)                # noqa: E731
-        k3 = lambda: mb.warp_masks_winner_banded(*args)         # noqa: E731
-        plain = lambda: mk.warp_masks_winner_plain(*args)       # noqa: E731
-        winner = k3()
-        frac = (winner != plain()).float().mean().item()
-        check(torch.equal(winner, k2()), f"{label}: K3 differs from K2")
-        check(frac <= tol, f"{label}: mismatch vs plain {frac} > {tol}")
-        windows = mb.source_windows_plain(
-            args[3], h, w, boxes=mb.node_boxes_plain(*args[:3]))
-        tiles = mb.tile_masks_plain(*args)
-        k2_ms, k3_ms = time_ms(k2), time_ms(k3)
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        turns = [device_ms(k2), device_ms(k3), device_ms(k3), device_ms(k2)]
-        passes = kernel_split(k3, {"memsets": "Memset", "boxes": "node_boxes",
-                                   "tiles": "warp_masks_tiles"})
-        live = int((~windows["skip"]).sum().item())
-        out = {"k2_ms": k2_ms, "k3_ms": k3_ms, "plain_ms": plain_ms,
-               "k2_device_ms": (turns[0] + turns[3]) / 2,
-               "k3_device_ms": (turns[1] + turns[2]) / 2,
-               "k3_passes_ms": passes, "mismatch_vs_plain": frac,
-               "pairs_visited": live, "pairs": windows["skip"].numel(),
-               "tiles_visited": int(tiles["tiles"].numel()),
-               "tiles": int(tiles["masks"].shape[0]),
-               "windows_over_budget": int(windows["gather"].sum().item()),
-               "shape": [b, n, t, h, w]}
-        log(f"  {label} [{b},{n},{t},{h},{w}]: winner mismatch vs plain "
-            f"{frac:.3g} (tol {tol:.3g}), K3 vs K2 0; K3 visits {live} of "
-            f"{out['pairs']} (tile, node) pairs in {out['tiles_visited']} of "
-            f"{out['tiles']} tiles, {out['windows_over_budget']} regions "
-            f"over {mb.WIN_MAX} pixels; around a call K2 {k2_ms:.4f} ms  K3 "
-            f"{k3_ms:.4f} ms; device alone K2 {out['k2_device_ms']:.4f}  K3 "
-            f"{out['k3_device_ms']:.4f} (in turns "
-            f"{[round(x, 4) for x in turns]}); K3's passes "
-            f"{ {k: round(v, 4) for k, v in passes.items()} }; plain "
-            f"{plain_ms:.4f} ms")
-        return out
-
-    def winner_bound(args, live, tiles):
-        """Per output pixel 6 operations for its base coordinates; per
-        (node, tile) ~60 for the window; where the window meets the node's
-        box ~30 per pixel of the tile (this run's maps and thetas: a tile
-        pays nothing per pixel for a node it cannot touch); one compare per
-        (source pixel, node) for the boxes. Bytes: inputs read, winner
-        written."""
-        b, h, w = args[0].shape
-        n, t = args[3].shape[1:3]
-        return bound(nbytes(*args) + 4 * b * t * h * w,
-                     b * n * h * w + 6 * b * t * h * w + 60 * n * tiles
-                     + live * 30 * mb.TILE[0] * mb.TILE[1])
-
-    def maskwarp_case(b, role):
-        """K2 at [B, N, H, W] x [B, N, T, 6] = [b, 16, 128, 256] x [b, 16, 5, 6],
-        K3 on the same inputs."""
-        args = maskwarp_inputs(b, dev)
-        both = k2_and_k3(args, TOL_FLIP, f"warp_masks_winner {role}")
-        bd = k2_bound(args, mk.warp_masks_winner_plain(*args))
-        log(f"  warp_masks_winner {role}: bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}), {bd['pairs']} (pixel, node) pairs needed  "
-            f"no single library call")
-        return {"max_abs_err": both["mismatch_vs_plain"], "ms": both["k2_ms"],
-                "device_ms": both["k2_device_ms"],
-                "plain_ms": both["plain_ms"], "library_ms": None,
-                "shape": both["shape"], "k3": both,
-                "err": "winner mismatch fraction", **bd}
-
-    def splat_case(b, role, h=128, w=256):
-        """K4 at [b, h, w, 2] coords: the base grid plus a +-10 px flow of
-        independent noise (the row of record), then plus a smooth flow."""
-        flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 20).to(dev)
-        err, flips, mass, got, run, plain = splat_check(
-            sk, splat, grid_coords(flow))
-        ms, plain_ms = time_ms(run), time_ms(plain)
-        s_err, s_flips, s_mass, _, s_run, _ = splat_check(
-            sk, splat, grid_coords(smooth_flow(g, b, h, w, dev)), piled=True)
-        smooth = {"max_abs_err": s_err, "flips": s_flips, "max_mass": s_mass,
-                  "ms": time_ms(s_run), "device_ms": device_ms(s_run),
-                  "tol": f"{TOL_SPLAT} x max(1, mass / 4)"}
-        dev_ms = device_ms(run)
-        bd = bound(nbytes(flow, got), 14 * got.numel())
-        log(f"  corresponding_map {role} [{b},{h},{w},2]: max|diff| {err:.3g} "
-            f"(tol {TOL_SPLAT}, masses up to {mass:.3g}), 0.5-threshold flips "
-            f"{flips:.3g} (tol "
-            f"{TOL_FLIP})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
-            f"call  device alone: {dev_ms:.4f};  smooth flow: max|diff| "
-            f"{s_err:.3g} at masses up to {s_mass:.3g} (tol {TOL_SPLAT} x "
-            f"max(1, mass / 4)), flips {s_flips:.3g}  kernel "
-            f"{smooth['ms']:.4f} ms  device alone: {smooth['device_ms']:.4f}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "device_ms": dev_ms,
-                "shape": [b, h, w, 2], "flips": flips, "max_mass": mass, **bd,
-                "smooth": smooth}
-
-    def banded_case(b, kind, n=24, t=10, h=512, w=1024):
-        """K3 at [b, n, h, w] x [b, n, t, 6] (the long-horizon map: 24 nodes,
-        10 frames, 512x1024) on :func:`banded_inputs` of ``kind``, against
-        the plain winner and against K2 on the same inputs."""
-        args = banded_inputs(b, kind, dev, n, t, h, w)
-        tol = 0.0 if kind == "gt" else TOL_FLIP
-        both = k2_and_k3(args, tol, f"warp_masks_banded {kind}")
-        check((both["windows_over_budget"] > 0) == (kind == "zoom"),
-              f"K3 {kind} B={b}: {both['windows_over_budget']} windows over "
-              f"the budget")
-        bd = winner_bound(args, both["pairs_visited"], both["tiles"])
-        log(f"  warp_masks_banded {kind}: bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']})  no single library call")
-        return {"max_abs_err": both["mismatch_vs_plain"], "ms": both["k3_ms"],
-                "device_ms": both["k3_device_ms"],
-                "plain_ms": both["plain_ms"], "library_ms": None,
-                "thetas": kind, **both, "err": "winner mismatch fraction",
-                **bd}
-
-    def correlation_case(shape, role):
-        """K5 at FlowNetC's grid (max displacement 20, stride 2)."""
-        md, stride = 20, 2
-        a = torch.randn(shape, generator=g).to(dev)
-        b = torch.randn(shape, generator=g).to(dev)
-        run = lambda: ck.correlation(a, b, md, stride)          # noqa: E731
-        plain = lambda: ck.correlation_plain(a, b, md, stride)  # noqa: E731
-        got = run()
-        err = (got - plain()).abs().max().item()
-        ms, plain_ms = time_ms(run), time_ms(plain, reps=3, warmup=1)
-        dev_ms = device_ms(run)
-        # 2 C operations per (pixel, displacement) pair that stays inside
-        # the image; pairs that leave it are zeros and cost nothing
-        bsz, h, w, c = shape
-        steps = range(-md, md + 1, stride)
-        ny = sum(1 for y in range(h) for d in steps if 0 <= y + d < h)
-        nx = sum(1 for x in range(w) for d in steps if 0 <= x + d < w)
-        bd = bound(nbytes(a, b, got), 2 * c * bsz * ny * nx)
-        log(f"  correlation {role} {list(shape)} -> {list(got.shape)}: "
-            f"max|diff| {err:.3g} (tol {TOL_CORR})  kernel {ms:.4f} ms  "
-            f"device alone {dev_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})  no single library "
-            f"call")
-        check(err <= TOL_CORR, f"correlation {shape}: max|diff| {err}")
-        return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                "plain_ms": plain_ms, "library_ms": None,
-                "shape": list(shape), **bd}
-
-    rows["warp_masks_winner"] = maskwarp_case(12, "serving")
-    train["warp_masks_winner"] = maskwarp_case(3, "train")
-    rows["corresponding_map"] = splat_case(60, "serving")
-    train["corresponding_map"] = splat_case(15, "train")
-    # a forward kernel's row is its serving shape's; its check and times at
-    # the train step's shape ride along under "train"
-    for name, case in train.items():
-        rows[name]["train"] = case
-
-    # K3: its row is the long-horizon request's shape (bucket 4) with
-    # GNN-like thetas; the other cases ride along
-    rows["warp_masks_banded"] = banded_case(4, "gnn")
-    # the other cases; then where the size rule's two kernels meet: image-
-    # wide objects at both map sizes, and N near K3's node limit
-    rows["warp_masks_banded"]["cases"] = [
-        banded_case(4, "gt"), banded_case(4, "zoom"), banded_case(1, "gt"),
-        banded_case(1, "gnn"), banded_case(1, "zoom"),
-        banded_case(1, "wide"), banded_case(3, "wide", 16, 5, 128, 256),
-        banded_case(1, "gnn", mb.NODES_MAX - 8, 5, 128, 256)]
-    # K5: the journal train batch's 30 frame pairs, and one 512x1024 pair
-    rows["correlation"] = correlation_case((30, 16, 32, 256), "on-the-fly")
-    rows["correlation"]["cases"] = [
-        correlation_case((2, 64, 128, 256), "512x1024 pairs")]
-    # K4 at the on-the-fly call's 30 frame pairs (FlowNet2's confidence)
-    rows["corresponding_map"]["onthefly"] = splat_case(30, "onthefly")
-    # K5 and K4 at precompute_flow's one frame pair a call (journal config)
-    rows["correlation"]["precompute"] = correlation_case((1, 16, 32, 256),
-                                                         "precompute")
-    rows["corresponding_map"]["precompute"] = splat_case(1, "precompute")
-    # K2 and K4 at make_synthetic_dataset's one clip a call (journal config:
-    # 16 objects, 5 predicted frames)
-    rows["warp_masks_winner"]["synthetic_dataset"] = maskwarp_case(
-        1, "synthetic_dataset")
-    rows["corresponding_map"]["synthetic_dataset"] = splat_case(
-        5, "synthetic_dataset")
-    # K1 and K4 at the long-horizon shapes: 10 folded frames per clip in
-    # the train step, 40 in a bucket-4 request; the four decoder skips and
-    # the bottleneck are the five bf16 launches of a request or a step
-    long_skips = [(128, 256, 64), (64, 128, 128), (32, 64, 256),
-                  (16, 32, 512)]
-    for b, role in ((10, "long_horizon_train"), (40, "long_horizon_serving")):
-        rows["resample_bf16"][role + "_skips"] = [
-            resample_case(wk.RESAMPLE_BF16, torch.bfloat16, (b, *hwc), True,
-                          role + " decoder skip", frames=10)
-            for hwc in long_skips]
-        rows["resample_bf16"][role] = resample_case(
-            wk.RESAMPLE_BF16, torch.bfloat16, (b, 64, 128, 256), True, role)
-        rows["resample_f32"][role] = resample_case(
-            wk.RESAMPLE_F32, torch.float32, (b, 512, 1024, 3), False, role,
-            frames=10)
-        rows["corresponding_map"][role] = splat_case(b, role, 512, 1024)
-    rows["resample_bwd_bf16"]["long_horizon_train_skips"] = [
-        backward_case(wk.RESAMPLE_BWD_BF16, torch.bfloat16, (10, *hwc), True,
-                      (True, False, False), "long_horizon_train decoder skip",
-                      frames)
-        for frames in (10, 1) for hwc in long_skips]
-    rows["resample_bwd_bf16"]["long_horizon_train"] = backward_case(
-        wk.RESAMPLE_BWD_BF16, torch.bfloat16, (10, 64, 128, 256), True,
-        (True, True, True), "long_horizon_train")
-    rows["resample_bwd_f32"]["long_horizon_train"] = backward_case(
-        wk.RESAMPLE_BWD_F32, torch.float32, (10, 512, 1024, 3), False,
-        (False, True, False), "long_horizon_train", frames=10)
-    return rows
-
-
-def maskwarp_inputs(b, dev, n=16, t=5, h=128, w=256):
-    """Instance map, ids, valid and thetas of K2's journal shape
-    [b, n, h, w] x [b, n, t, 6]: objects of 8-32 x 8-64 pixels, small scale,
-    shear and translation noise, every node valid."""
-    rng = np.random.RandomState(SEED)
-    inst = np.zeros((b, h, w), np.float32)
-    for bi in range(b):
-        for k in range(n):
-            y0, x0 = rng.randint(0, h - 32), rng.randint(0, w - 64)
-            inst[bi, y0:y0 + rng.randint(8, 32),
-                 x0:x0 + rng.randint(8, 64)] = 26001 + k
-    ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
-    th = np.zeros((b, n, t, 6), np.float32)
-    th[..., 0] = 1 + rng.randn(b, n, t) * 0.05
-    th[..., 4] = 1 + rng.randn(b, n, t) * 0.05
-    th[..., 1] = rng.randn(b, n, t) * 0.03
-    th[..., 3] = rng.randn(b, n, t) * 0.03
-    th[..., 2] = rng.randn(b, n, t) * 0.1
-    th[..., 5] = rng.randn(b, n, t) * 0.1
-    return [torch.as_tensor(a, device=dev)
-            for a in (inst, ids, np.ones((b, n), bool), th)]
-
-
-def k2_pairs(valid, winner) -> int:
-    """The (pixel, node) pairs the winner function needs when the valid
-    nodes are visited last to first: a pixel won by node k visits the valid
-    nodes from the last down to k; a background pixel visits them all."""
-    b, n = valid.shape
-    # after[b, k] = valid nodes with index >= k; after[b, 0] = all of them
-    after = valid.flip(1).long().cumsum(1).flip(1)
-    start = (winner.long() - 1).clamp(min=0).reshape(b, -1)
-    return int(after.gather(1, start).sum().item())
-
-
-def k2_bound(args, winner) -> dict:
-    """K2's bound on these inputs: per output pixel 6 operations for its
-    base coordinates, ~30 per (pixel, node) pair that the function needs
-    (affine, source coordinate, bilinear weights, interpolation), counted
-    from the plain winner by :func:`k2_pairs`. Bytes: inputs read, winner
-    written."""
-    b, h, w = args[0].shape
-    t = args[3].shape[2]
-    pairs = k2_pairs(args[2], winner)
-    return {**bound(nbytes(*args) + 4 * b * t * h * w,
-                    6 * b * t * h * w + 30 * pairs), "pairs": pairs}
-
-
-def banded_inputs(b, kind, dev, n=24, t=10, h=512, w=1024):
-    """Instance map, ids, valid and thetas of the mask warp at
-    [b, n, h, w] x [b, n, t, 6]: objects of 1/8-1/4 of the map each side.
-    kind: 'gt' axis-aligned half-integer pixel translations (no sample near
-    the threshold: 0 mismatches), 'gnn' small scale, shear and translation
-    noise, 'zoom' as 'gnn' with node 0 covering the middle of the map,
-    rotated by 1 rad and zoomed out 6x, so that its regions exceed
-    mb.WIN_MAX pixels (a strong zoom-out: taps far apart), 'wide' as 'gnn' on
-    image-wide objects (a band of rows and a column across the map per
-    node: every tile's window meets every box, so K3 skips nothing)."""
-    rng = np.random.RandomState(SEED)
-    inst = np.zeros((b, h, w), np.float32)
-    for bi in range(b):
-        for k in range(n):
-            bh, bw = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
-            y0, x0 = rng.randint(0, h - bh), rng.randint(0, w - bw)
-            inst[bi, y0:y0 + bh, x0:x0 + bw] = 26001 + k
-    ids = np.tile(26001 + np.arange(n, dtype=np.int32), (b, 1))
-    if kind == "wide":
-        for k in range(n):
-            inst[:, (k * h) // n:((k + 1) * h) // n, :] = 26001 + k
-        for k in range(n):
-            inst[:, :, (k * w) // n] = 26001 + k
-    th = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (b, n, t, 1))
-    if kind == "gt":
-        th[..., 2] = (rng.randint(-40, 41, (b, n, t)) + 0.5) * 2.0 / w
-        th[..., 5] = (rng.randint(-20, 21, (b, n, t)) + 0.5) * 2.0 / h
-    else:
-        th[..., 0] += rng.randn(b, n, t) * 0.05
-        th[..., 4] += rng.randn(b, n, t) * 0.05
-        th[..., 1] = rng.randn(b, n, t) * 0.03
-        th[..., 3] = rng.randn(b, n, t) * 0.03
-        th[..., 2] = rng.randn(b, n, t) * 0.1
-        th[..., 5] = rng.randn(b, n, t) * 0.1
-    if kind == "zoom":
-        c, sn = 6 * np.cos(1.0), 6 * np.sin(1.0)
-        th[:, 0] = np.array([c, -sn, 0.1, sn, c, -0.05], np.float32)
-        inst[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = ids[0, 0]
-    return [torch.as_tensor(a, device=dev)
-            for a in (inst, ids, np.ones((b, n), bool), th)]
-
-
-def layouts_in(row) -> list:
-    """The kernel layouts (the routes inside one kernel's source, as
-    ``resample_route`` names them) that phase 3 ran, from a kernel's row."""
-    found = set()
-
-    def walk(x):
-        if isinstance(x, dict):
-            if isinstance(x.get("layout"), str):
-                found.add(x["layout"])
-            for v in x.values():
-                walk(v)
-        elif isinstance(x, list):
-            for v in x:
-                walk(v)
-
-    walk(row)
-    return sorted(found)
+def phase_kernels(dev) -> None:
+    """Phase 3: each hand-written kernel against its plain version at every
+    shape the paths give it, the ``PATH_*`` cases of
+    tests/test_torch_kernels_cuda.py run with their own assertions: K1
+    forward on noise and smooth flows and K1 backward, K4 on both flows,
+    K2 and K3 under every kind of thetas, K5 in float32 and bfloat16."""
+    log("[phase 3] the kernels against their plain versions at the paths' "
+        "shapes")
+    k = _KERNEL_CASES
+    cases = (
+        [(k.test_resample_kernel_at_the_paths_shapes,
+          {"case": c, "flow_kind": f})
+         for c in k.PATH_RESAMPLE for f in k.FLOW_KINDS]
+        + [(k.test_resample_backward_at_the_paths_shapes, {"case": c})
+           for c in k.PATH_RESAMPLE_BWD]
+        + [(k.test_splat_kernel_matches_plain,
+            {"shape": s, "px": 10.0, "flow_kind": f})
+           for s in k.PATH_SPLAT for f in k.FLOW_KINDS]
+        + [(k.test_banded_winner_kernel_matches_plain_and_k2,
+            {"shape": s, "kind": kind})
+           for s in k.PATH_WINNER for kind in k.WINNER_KINDS]
+        + [(k.test_correlation_kernel_matches_plain,
+            {"shape": s, "md": md, "stride": st, "dtype": dt})
+           for s, md, st in k.PATH_CORRELATION
+           for dt in (torch.float32, torch.bfloat16)])
+    t0 = time.perf_counter()
+    with full_float32():
+        for test, args in cases:
+            try:
+                test(dev, **args)
+            except AssertionError as e:
+                check(False, f"{test.__name__} {args}: {e}")
+    log(f"  {len(cases)} cases passed in {time.perf_counter() - t0:.1f} s")
+    release_memory()
 
 
 def build_model(cfg):
@@ -1145,8 +384,7 @@ FORWARD_512 = {"resample_f32", "resample_bf16", "warp_masks_banded",
 BACKWARD = {"resample_bwd_f32", "resample_bwd_bf16"}
 
 
-def serve(phase, cfg, dev, buckets, plan, launched, profile,
-          structural=False):
+def serve(phase, cfg, dev, buckets, plan, launched, structural=False):
     """A ServingModel pair (GT thetas / click path) around one seeded model
     answers one request per entry (batch size, GT thetas?) of ``plan``.
     Returns the launch counts. Padded rows are held to their unpadded
@@ -1170,7 +408,6 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile,
     tpred = cfg.test_params.num_predicted_frames
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    warm_ms = {}
     for i, (batch, z, click) in enumerate(reqs):
         bs = z.shape[0]
         server = gt if plan[i][1] else click_path
@@ -1181,7 +418,6 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile,
             t0 = time.perf_counter()
             out = server(batch, z, click)
             times.append((time.perf_counter() - t0) * 1e3)
-        warm_ms[i] = min(times[1:])
         gen = out["generated"]
         check(gen.shape == (bs, tpred, h, w, 3), f"{name}: shape {gen.shape}")
         check(bool(np.isfinite(gen).all()), f"{name}: non-finite frames")
@@ -1201,8 +437,6 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile,
         f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     # serving differentiates nothing: the backward kernels stay at 0
     expect_launched(counts, launched, f"the serving path of {phase}")
-    if profile:
-        profile_window(f"request ({phase})", lambda: gt(*reqs[0]), warm_ms[0])
     # padded request == the same rows served alone in a bucket of their own
     i = next(i for i, bs in enumerate(sizes) if bs not in buckets)
     server = gt if plan[i][1] else click_path
@@ -1240,17 +474,16 @@ def serve(phase, cfg, dev, buckets, plan, launched, profile,
     return counts
 
 
-def phase_serving(cfg, dev, profile: bool = False):
+def phase_serving(cfg, dev):
     """Phase 4: the journal serving path through ServingModel."""
     log(f"[phase 4] ServingModel, journal config at full width, bucket "
         f"{BUCKET}, compute {cfg.train_params.dtype} (cast at use), float32 "
         f"parameters")
     return serve("the journal config", cfg, dev, (BUCKET,),
-                 ((BUCKET, True), (5, True), (BUCKET, False)), FORWARD_128,
-                 profile)
+                 ((BUCKET, True), (5, True), (BUCKET, False)), FORWARD_128)
 
 
-def phase_long_serving(cfg, dev, profile: bool = False):
+def phase_long_serving(cfg, dev):
     """Phase 9: the long-horizon serving path."""
     tp = cfg.test_params
     log(f"[phase 9] ServingModel, long-horizon config at full width and "
@@ -1258,7 +491,7 @@ def phase_long_serving(cfg, dev, profile: bool = False):
         f"{cfg.dataset_params.max_objects} nodes, buckets {LONG_BUCKETS}, "
         f"compute {cfg.train_params.dtype}")
     return serve("the long-horizon config", cfg, dev, LONG_BUCKETS,
-                 ((4, True), (1, False), (3, False)), FORWARD_512, profile)
+                 ((4, True), (1, False), (3, False)), FORWARD_512)
 
 
 def phase_cpu_parity(cfg, dev):
@@ -1298,11 +531,6 @@ def phase_cpu_parity(cfg, dev):
     return worst
 
 
-def all_kernels():
-    from c2m_tpu_torch.ops.hopper import all_kernels as kernels
-    return kernels()
-
-
 def reset_launches():
     """Every kernel's launch count to 0, just before a path is driven."""
     for k in all_kernels():
@@ -1322,7 +550,7 @@ def train_batch(cfg, dev, batch_size, seed):
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def phase_train(cfg, dev, profile: bool, phase: int = 6,
+def phase_train(cfg, dev, phase: int = 6,
                 what: str = "journal config", steps: int = 3,
                 launched=frozenset(FORWARD_128 | BACKWARD), then=None):
     """Phases 6, 11 and 13: ``steps`` steps of the train step at ``cfg``;
@@ -1419,20 +647,17 @@ def phase_train(cfg, dev, profile: bool, phase: int = 6,
             f"kl {m['kl']:.4f}")
     log(f"  launches over the {steps} steps: {counts}")
     expect_launched(counts, launched, f"the train step of the {what}")
-    if profile:
-        profile_window(f"train_step ({what})",
-                       lambda: step(state, batches[0]), min(times[1:]))
     if then is not None:
         then(state)
     return counts
 
 
-def phase_long_train(cfg, dev, profile: bool):
+def phase_long_train(cfg, dev):
     """Phase 11: two train steps at the long-horizon config, one clip per
     step (the YAML's batch 16 is one clip per chip of a 16-chip mesh)."""
     cfg = copy.deepcopy(cfg)
     cfg.train_params.batch_size = 1
-    return phase_train(cfg, dev, profile, phase=11,
+    return phase_train(cfg, dev, phase=11,
                        what="long-horizon config", steps=2,
                        launched=frozenset(FORWARD_512 | BACKWARD))
 
@@ -1722,21 +947,19 @@ def phase_program(cfg, dev):
         f"the card in {time.perf_counter() - t0:.1f} s, held in host memory")
     root = tempfile.mkdtemp(prefix="c2m_program_")
     try:
-        counts, eval_ms = program_steps(cfg, dev, root, train_set, val_set)
+        counts = program_steps(cfg, dev, root, train_set, val_set)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return counts, eval_ms
+    return counts
 
 
 def program_steps(cfg, dev, root, train_set, val_set):
-    """Phase 12's runs in ``root``; returns the launch counts by run and
-    the evaluator's ms per val batch."""
+    """Phase 12's runs in ``root``; returns the launch counts by run."""
     import shutil
     from c2m_tpu_torch.data.loader import DataLoader, collate
     from c2m_tpu_torch.eval.evaluator import Evaluator
     from c2m_tpu_torch.serving import ServingModel, export_artifact, z_dim
-    from c2m_tpu_torch.train.step import make_train_step
     from c2m_tpu_torch.train.trainer import Trainer, device_batch
     from c2m_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 load_payload, restore_state,
@@ -1887,49 +1110,19 @@ def program_steps(cfg, dev, root, train_set, val_set):
     del c, batches, payload, saved
     release_memory()
 
-    # 3. the trainer's overhead over a bare step: epoch 2 of the unbroken
-    # run with the cadences off, then the same eight batches as bare steps
+    # 3. the rest of epoch 1 and epoch 2 of the unbroken run, the cadences
+    # off
     vz.print_freq = vz.display_freq = vz.save_latest_freq = 10 ** 9
     tp.eval_freq = 10 ** 9
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     a.fit(num_epochs=2)
     torch.cuda.synchronize()
-    order = [h["indices"] for h in a.history if h["step"] > 4]
-    loop_ms = (time.perf_counter() - t0) * 1e3 / len(order)
-    check(a.total_iter == 4 + len(order) == 2 * a.steps_per_epoch,
+    rest = [h for h in a.history if h["step"] > 4]
+    check(a.total_iter == 4 + len(rest) == 2 * a.steps_per_epoch
+          and all(np.isfinite(float(v)) for h in rest
+                  for v in h["metrics"].values()),
           f"the rest of epoch 1 and epoch 2: {a.total_iter} steps")
-    batches = [device_batch(collate([train_set[int(i)] for i in o]), dev)
-               for o in order]
-    step = make_train_step(cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for bt in batches:
-        step(a.state, bt)
-    torch.cuda.synchronize()
-    bare_ms = (time.perf_counter() - t0) * 1e3 / len(order)
-    # its parts: the loader alone (collation into pinned memory in its
-    # threads) and the copies of a pinned batch to the card
-    a.loader.set_epoch(3)
-    t0 = time.perf_counter()
-    pinned = list(a.loader)
-    loader_ms = (time.perf_counter() - t0) * 1e3 / len(pinned)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for bt in pinned:
-        device_batch(bt, dev)
-    torch.cuda.synchronize()
-    h2d_ms = (time.perf_counter() - t0) * 1e3 / len(pinned)
-    mib = sum(np.asarray(v).nbytes for k, v in pinned[0].items()
-              if k != "names") / 2 ** 20
-    log(f"  warm ms per step over {len(order)} steps (the rest of epoch 1 "
-        f"and epoch 2, cadences off), one synchronize at the end: "
-        f"Trainer.fit {loop_ms:.1f} vs bare make_train_step on the same "
-        f"batches already on the card {bare_ms:.1f}: overhead "
-        f"{loop_ms - bare_ms:.1f} ms per step; the loader alone "
-        f"{loader_ms:.1f} ms per batch of {mib:.1f} MiB (its threads), the "
-        f"pinned copy to the card {h2d_ms:.2f} ms")
-    del batches, pinned
+    log(f"  the rest of epoch 1 and epoch 2, cadences off: {len(rest)} more "
+        f"steps, every metric finite")
     release_memory()
 
     # 4. the evaluator: two val batches of test_params.batch_size, clicks
@@ -1945,21 +1138,18 @@ def program_steps(cfg, dev, root, train_set, val_set):
         ecfg.test_params.load_index_user_guidance = load
         ev = Evaluator(ecfg, a.state.model, job_e)
         g = torch.Generator().manual_seed(ecfg.test_params.seed + int(load))
-        clicks, times = [], []
+        clicks = []
         for bi, batch in enumerate(loader):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             out = ev.evaluate_batch(batch, bi, g)
             ev.save_samples(batch, out, bi)
             ev.fetch_metrics_data(batch, out)
-            times.append((time.perf_counter() - t0) * 1e3)
             clicks.append(out["click_mask"])
             check(out["generated"].shape[0] == len(batch["video"])
                   and np.isfinite(out["generated"]).all(),
                   f"eval batch {bi}: generated {out['generated'].shape}")
         results = ev.generate_metrics()
         ev.write_metrics(results)
-        passes.append((clicks, times, results))
+        passes.append((clicks, results))
     files = set(os.listdir(ev.out_dir))
     want = {f"b{bi:05d}_s{s}_{kind}" for bi in range(2) for s in range(2)
             for kind in ("gen.gif", "real.gif", "gen.png", "flow.png",
@@ -1969,7 +1159,7 @@ def program_steps(cfg, dev, root, train_set, val_set):
     check(want <= files, f"evaluator files missing: {sorted(want - files)}")
     check(os.path.exists(os.path.join(ev.out_dir, "web", "index.html")),
           "no evaluator HTML")
-    results = passes[0][2]
+    results = passes[0][1]
     check(np.isfinite(results["trajectory_mse_theta"])
           and np.isnan(results["fid"]) and np.isnan(results["fvd"]),
           f"evaluator results {results}")
@@ -1977,10 +1167,7 @@ def program_steps(cfg, dev, root, train_set, val_set):
                                                     passes[1][0])),
           "the second pass did not reproduce the saved clicks")
     log(f"  evaluator over 2 val batches of {ecfg.test_params.batch_size}: "
-        f"ms per batch (inference, sample dumps, metric inputs) "
-        f"{', '.join(f'{t:.1f}' for t in passes[0][1])}, loading the clicks "
-        f"{', '.join(f'{t:.1f}' for t in passes[1][1])}; results {results}; "
-        f"the second pass reproduced the saved clicks")
+        f"results {results}; the second pass reproduced the saved clicks")
 
     # 5. export the trained generator, serve it, hold it to the model
     art = os.path.join(root, "artifact")
@@ -2029,7 +1216,7 @@ def program_steps(cfg, dev, root, train_set, val_set):
         f"launches {counts['program_onthefly']}")
     del d
     release_memory()
-    return counts, passes[0][1]
+    return counts
 
 
 # the generator variants (phase 13): the KITTI YAML as shipped, and the
@@ -2139,7 +1326,8 @@ def image_warp_reads_once(dev):
     """The variants' image warp passes each source image once for its T
     frames (K1's ``frames``): output and flow gradient equal, bit for bit,
     to the warp of the T-fold repeated image, at the request's and the
-    step's shapes (phase 3 holds both against the plain version)."""
+    step's shapes (phase 3 holds both against the plain version: the
+    resample cases of tests/test_torch_kernels_cuda.py)."""
     from c2m_tpu_torch.ops.hopper.warp_kernels import resample
     g = torch.Generator().manual_seed(23)
     t, h, w = 5, 128, 256
@@ -2162,7 +1350,7 @@ def image_warp_reads_once(dev):
         check(err == 0.0, f"frames={t} image warp differs by {err}")
 
 
-def phase_variants(cfg, dev, profile: bool):
+def phase_variants(cfg, dev):
     """Phase 13: the KITTI and the SPADE model at full width: serving,
     three train steps, export -> serve, card vs CPU."""
     log("[phase 13] the generator variants")
@@ -2178,14 +1366,14 @@ def phase_variants(cfg, dev, profile: bool):
         counts[f"{name}_serving"] = serve(
             f"the {name} model", vcfg, dev, (BUCKET,),
             ((BUCKET, True), (5, True), (BUCKET, False)), FORWARD_128,
-            profile, structural=True)
+            structural=True)
         release_memory()
 
         def then(state, vcfg=vcfg, name=name):
             check_branch_gradients(state, name)
             export_and_serve(state, vcfg, dev, name)
         counts[f"{name}_train"] = phase_train(
-            vcfg, dev, profile, phase=13, what=f"{name} model", steps=3,
+            vcfg, dev, phase=13, what=f"{name} model", steps=3,
             then=then)
         release_memory()
         with full_float32():
@@ -2312,26 +1500,6 @@ def seeded_net_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
     return net
 
 
-def calibrate_bn_(net: torch.nn.Module, x: torch.Tensor) -> None:
-    """Each BatchNorm's running mean and (biased) variance := those of its
-    input over one forward of ``x``, layer after layer, so that the
-    activations stay of order 1 through the depth (random kernels alone
-    shrink them until the biases are all that is left)."""
-    def hook(mod, args):
-        a = args[0]
-        dims = [d for d in range(a.dim()) if d != 1]
-        mod.running_mean.copy_(a.mean(dims))
-        mod.running_var.copy_(a.var(dims, unbiased=False))
-    handles = [m.register_forward_pre_hook(hook) for m in net.modules()
-               if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
-    try:
-        with torch.no_grad():
-            net(x)
-    finally:
-        for h in handles:
-            h.remove()
-
-
 def net_error(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """max |d| relative to the largest reference output; YOLOv3's box
     sizes (exp of a logit times an anchor) compared as logs."""
@@ -2356,11 +1524,11 @@ def round_trip(net, to_jax, from_jax, path: str, name: str) -> dict:
     return back
 
 
-def phase_metric_nets(cfg, dev, smi: str, eval_ms_plain) -> dict:
+def phase_metric_nets(cfg, dev, smi: str) -> dict:
     """Phase 15: InceptionV3, I3D and YOLOv3 at full input size: seeded
-    weights through the bridge's npz (bit for bit), card vs CPU, times per
-    batch of 16, NMS time, the Evaluator with the nets against phase 12's
-    without, eval_torch.py and yolo_detect_torch.py as subprocesses."""
+    weights through the bridge's npz (bit for bit), card vs CPU, the
+    Evaluator with the nets, eval_torch.py and yolo_detect_torch.py as
+    subprocesses."""
     import shutil
     import tempfile
     from c2m_tpu_torch.data.dataset import SyntheticDataset
@@ -2401,7 +1569,7 @@ def phase_metric_nets(cfg, dev, smi: str, eval_ms_plain) -> dict:
             "i3d": (i3d.InceptionI3d, i3d.load_i3d, "I3D_WEIGHTS"),
             "yolov3": (yolov3.YoloV3, yolov3.load_yolov3, "YOLO_WEIGHTS")}
     root = tempfile.mkdtemp(prefix="c2m_nets_")
-    env, on_device = {}, {}
+    env = {}
     try:
         for seed, (name, (cls, load, var)) in enumerate(nets.items()):
             calib, x = inputs[name]
@@ -2428,12 +1596,9 @@ def phase_metric_nets(cfg, dev, smi: str, eval_ms_plain) -> dict:
                     f"{float(want.abs().max()):.4g}")
                 check(bool(torch.isfinite(want).all()) and err <= TOL_NET,
                       f"{name} card vs CPU: {err}")
-            on_device[name] = card
-            del net, cpu
+            del net, card, cpu
             release_memory()
-        metric_net_times(on_device, inputs)
-        counts = metric_net_evaluator(cfg, dev, root, val_set, env,
-                                      eval_ms_plain)
+        counts = metric_net_evaluator(cfg, dev, root, val_set, env)
         log(f"  peak memory of phase 15 in this process "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         metric_net_entry_points(cfg, root, val_set, env, dev)
@@ -2445,50 +1610,9 @@ def phase_metric_nets(cfg, dev, smi: str, eval_ms_plain) -> dict:
     return counts
 
 
-def metric_net_times(nets, inputs) -> None:
-    """Each net's warm time per batch of 16 at its full input size, TF32
-    off as the evaluator runs it: CUDA events around the call, and the
-    device's busy time alone (torch.profiler), beside the least time the
-    card could take (the operations torch's FlopCounterMode counts over
-    the float32 peak, or input, weights and output over the HBM rate);
-    YOLOv3's NMS on the host. Hands each net's memory back after it."""
-    from torch.utils.flop_counter import FlopCounterMode
-    from c2m_tpu_torch.eval.yolov3 import non_max_suppression
-    for name in list(nets):
-        x = inputs[name][1]
-        x = x.repeat(16 // len(x), *([1] * (x.dim() - 1)))
-        net = nets.pop(name)
-        with torch.no_grad(), full_float32():
-            with FlopCounterMode(display=False) as fc:
-                out = net(x)
-            bd = bound(nbytes(x, out, *net.parameters()), fc.get_total_flops())
-            ms = time_ms(lambda: net(x), reps=10, warmup=2)
-            busy = kernel_split(lambda: net(x), {"busy": ""}, calls=3)["busy"]
-        log(f"  {name} batch of 16 {tuple(x.shape)}: {ms:.2f} ms around the "
-            f"call, {busy:.2f} ms of device time; "
-            f"{fc.get_total_flops() / 1e9:.1f} GFLOP, bound "
-            f"{bd['bound_ms']:.2f} ms ({bd['bound_by']}), "
-            f"{bd['bound_ms'] / busy:.3f} of the device time")
-        out = out if name == "yolov3" else None
-        if out is not None:
-            preds = out.cpu().numpy()
-            t0 = time.perf_counter()
-            kept = [non_max_suppression(p, 0.5, 0.4) for p in preds]
-            nms_ms = (time.perf_counter() - t0) * 1e3 / len(preds)
-            above = float((preds[..., 4] >= 0.5).sum(1).mean())
-            log(f"  NMS on the host: {nms_ms:.2f} ms per image at conf 0.5 "
-                f"(random weights: {above:.0f} of {preds.shape[1]} boxes above "
-                f"0.5 per image, "
-                f"{np.mean([0 if k is None else len(k) for k in kept]):.0f} "
-                f"kept)")
-        del net, x
-        release_memory()
-
-
-def metric_net_evaluator(cfg, dev, root, val_set, env, eval_ms_plain):
+def metric_net_evaluator(cfg, dev, root, val_set, env):
     """The Evaluator with the three nets built from the variables, over 2
-    val batches, against phase 12's ms per batch without them; returns the
-    launch counts of its inference."""
+    val batches; returns the launch counts of its inference."""
     from c2m_tpu_torch.data.loader import DataLoader
     from c2m_tpu_torch.eval.evaluator import Evaluator
     from c2m_tpu_torch.train.state import create_train_state
@@ -2511,30 +1635,21 @@ def metric_net_evaluator(cfg, dev, root, val_set, env, eval_ms_plain):
     check(set(ev.metric_nets) == {"fid", "fvd", "detector"},
           f"the Evaluator built {ev.metric_nets}")
     g = torch.Generator().manual_seed(cfg.test_params.seed)
-    times = []
     reset_launches()
     for bi, batch in enumerate(loader):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         out = ev.evaluate_batch(batch, bi, g)
         ev.save_samples(batch, out, bi)
         ev.fetch_metrics_data(batch, out)
-        times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     counts = read_launches()
     expect_launched(counts, FORWARD_128, "the Evaluator with the metric nets")
-    t0 = time.perf_counter()
     results = ev.generate_metrics()
-    metrics_ms = (time.perf_counter() - t0) * 1e3
     gt = len(ev._det["gt_detected"])
     log(f"  Evaluator with the nets (built in {built:.1f} s) over 2 val "
-        f"batches of {tbs}: ms per batch (inference, sample dumps, metric "
-        f"inputs, detector) {', '.join(f'{t:.1f}' for t in times)} against "
-        f"{', '.join(f'{t:.1f}' for t in eval_ms_plain)} without the nets "
-        f"(phase 12); the detector ran on {ev.detector_frames} last "
-        f"frames, {gt} ground-truth detections "
-        f"matched; FID and FVD over {2 * tbs * 5} frames / {4 * tbs} videos "
-        f"in {metrics_ms:.0f} ms; results {results}; launches {counts}")
+        f"batches of {tbs}: the detector ran on {ev.detector_frames} last "
+        f"frames, {gt} ground-truth detections matched; FID and FVD over "
+        f"{2 * tbs * 5} frames / {4 * tbs} videos; results {results}; "
+        f"launches {counts}")
     check(ev.detector_frames == 2 * 2 * tbs,
           f"the detector ran on {ev.detector_frames} frames")
     check(np.isfinite(results["fid"]) and np.isfinite(results["fvd"]),
@@ -2628,18 +1743,6 @@ def pre_car_box(f):
     return 240 + 16 * f, 320, 320, 192
 
 
-class Pair(torch.nn.Module):
-    """``net(pair)`` -> ``net.inner(*pair)``: lets ``calibrate_bn_`` run a
-    two-input net (SiamRPN++'s template and search) in one forward."""
-
-    def __init__(self, inner: torch.nn.Module):
-        super().__init__()
-        self.inner = inner
-
-    def forward(self, pair):
-        return self.inner(*pair)
-
-
 def bn_scales_near_one_(net: torch.nn.Module, seed: int) -> None:
     """Every BatchNorm scale := 1 +- 0.1. ``seeded_net_`` does that for
     parameters named ``bn.weight``; the preprocessing nets keep their
@@ -2653,26 +1756,6 @@ def bn_scales_near_one_(net: torch.nn.Module, seed: int) -> None:
                     * 0.1)
 
 
-def damp_residuals_(net: torch.nn.Module, scale: float = 0.25) -> None:
-    """The last BatchNorm scale of every residual branch times ``scale``:
-    ``bn3`` of SiamRPN++'s and HRNet's bottlenecks, ``bn2`` of HRNet's
-    basic blocks. With unit residual branches these random deep nets
-    amplify float32 rounding layer after layer, in the JAX package and the
-    port alike: a tracker then carries it over frames into its boxes, and
-    card and CPU part by several times TOL_PRE_NET. Trained ResNets keep
-    their residual branches small (torchvision's ``zero_init_residual``);
-    phase 16 prints each net's float32 error against float64 on the card
-    as damped here."""
-    from c2m_tpu_torch.models import panoptic_deeplab, siamrpn
-    with torch.no_grad():
-        for mod in net.modules():
-            if isinstance(mod, (siamrpn.Bottleneck,
-                                panoptic_deeplab.BottleneckBlock)):
-                mod.bn3.weight.mul_(scale)
-            elif isinstance(mod, panoptic_deeplab.BasicBlock):
-                mod.bn2.weight.mul_(scale)
-
-
 def float64_error(net: torch.nn.Module, args, got) -> float:
     """max |got - net(args) in float64| over max |float64 output|, the
     worst over the outputs, on the card: the float32 error of ``got``."""
@@ -2681,19 +1764,6 @@ def float64_error(net: torch.nn.Module, args, got) -> float:
         want = ref(*[a.double() for a in args])
     del ref
     return rel_max(got, want)
-
-
-@contextlib.contextmanager
-def cudnn_search():
-    """``torch.backends.cudnn.benchmark`` on inside the block (cuDNN times
-    its algorithms per shape and keeps the fastest; off by default, as the
-    port runs), restored after: for the record of what it would give."""
-    before = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.benchmark = before
 
 
 def rel_max(got, want) -> float:
@@ -2749,11 +1819,10 @@ def centers_of(center: torch.Tensor, threshold: float = 0.1) -> int:
     return int(((heat >= pooled) & (heat > threshold)).sum())
 
 
-def preprocess_panoptic(dev, root: str, profile: bool) -> str:
+def preprocess_panoptic(dev, root: str) -> str:
     """Panoptic-DeepLab: seeded weights through the bridge, card vs CPU at
     PRE_PARITY on all three heads, postprocess card vs CPU, then the full
-    frame on the card timed (and split by torch.profiler with
-    ``profile``); returns the npz path."""
+    frame on the card; returns the npz path."""
     from c2m_tpu_torch.models.panoptic_deeplab import (PanopticDeepLab,
                                                        postprocess)
     from c2m_tpu_torch.ops.warp import resize_bilinear
@@ -2825,14 +1894,8 @@ def preprocess_panoptic(dev, root: str, profile: bool) -> str:
     x = x_full[1:].to(dev)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad(), full_float32():
-        ms = time_ms(lambda: net(x), reps=10, warmup=2)
-        busy = kernel_split(lambda: net(x), {"busy": ""}, calls=3)["busy"]
-        with cudnn_search():
-            busy_bench = kernel_split(lambda: net(x), {"busy": ""},
-                                      calls=3)["busy"]
         out = net(x)
         heads = [out[k][0] for k in ("semantic", "center", "offset")]
-        post_ms = time_ms(lambda: postprocess(*heads), reps=5, warmup=1)
         sem32 = out["semantic"].argmax(-1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     before = (torch.backends.cuda.matmul.allow_tf32,
@@ -2841,23 +1904,17 @@ def preprocess_panoptic(dev, root: str, profile: bool) -> str:
     torch.backends.cudnn.allow_tf32 = True
     try:
         with torch.no_grad():
-            ms_tf32 = time_ms(lambda: net(x), reps=5, warmup=2)
             sem_tf32 = net(x)["semantic"].argmax(-1)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = before
     flipped = float((sem_tf32 != sem32).float().mean())
-    if profile:
-        with torch.no_grad(), full_float32():
-            profile_window("Panoptic-DeepLab full frame", lambda: net(x), ms)
     sem, inst = postprocess(*heads)
     log(f"  full frame [1,{PRE_FULL[0]},{PRE_FULL[1]},3] on the card, float32 "
-        f"TF32 off: {ms:.2f} ms per frame around the call, {busy:.2f} ms of "
-        f"device time ({busy_bench:.2f} ms with torch.backends.cudnn."
-        f"benchmark); postprocess {post_ms:.2f} ms ({centers_of(heads[1])} "
-        f"centers above 0.1, {len(torch.unique(inst[inst > 0]))} instances); "
-        f"peak memory {peak:.2f} GiB; with TF32 on {ms_tf32:.2f} ms and "
-        f"{flipped:.3g} of the semantic pixels change class")
+        f"TF32 off: postprocess gives {centers_of(heads[1])} centers above "
+        f"0.1, {len(torch.unique(inst[inst > 0]))} instances; peak memory "
+        f"{peak:.2f} GiB; with TF32 on {flipped:.3g} of the semantic pixels "
+        f"change class")
     check(bool((sem >= 0).all() and (sem < 19).all()), "semantic ids")
     del net, x, out, heads
     release_memory()
@@ -2883,10 +1940,9 @@ def synthetic_video(n: int, seed: int):
     return frames, gt
 
 
-def preprocess_siamrpn(dev, root: str, profile: bool) -> str:
+def preprocess_siamrpn(dev, root: str) -> str:
     """SiamRPN++: seeded weights through the bridge, features and heads card
-    vs CPU, one tracker card vs CPU over 9 frames of the full frame (one
-    ``track`` call split by torch.profiler with ``profile``), the OPE
+    vs CPU, one tracker card vs CPU over 9 frames of the full frame, the OPE
     benchmark with the card tracker; returns the npz path."""
     from c2m_tpu_torch.eval.tracker_benchmark import evaluate_tracker
     from c2m_tpu_torch.models.siamrpn import (SiamRPNpp, SiamRPNTracker,
@@ -2942,40 +1998,23 @@ def preprocess_siamrpn(dev, root: str, profile: bool) -> str:
     trackers = {"card": SiamRPNTracker(net), "cpu": SiamRPNTracker(cpu)}
     boxes = {k: [] for k in trackers}
     bests = {k: [] for k in trackers}
-    host_ms, margins = [], []
+    margins = []
     with full_float32():
         for name, tr in trackers.items():
             tr.init(frames[0], gt[0])
             for f in range(1, 9):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 out = tr.track(frames[f])
-                if name == "card":
-                    host_ms.append((time.perf_counter() - t0) * 1e3)
-                else:
+                if name == "cpu":
                     top = np.sort(tr.pscore)[-2:]
                     margins.append(float(top[1] - top[0]))
                 boxes[name].append(out["bbox"])
                 bests[name].append(tr.best)
-        probe = SiamRPNTracker(net)
-        probe.init(frames[0], gt[0])
-        busy = kernel_split(lambda: probe.track(frames[1]), {"busy": ""},
-                            calls=3)["busy"]
-        if profile:
-            profile_window("SiamRPN++ track()",
-                           lambda: probe.track(frames[1]),
-                           statistics.median(host_ms))
-        with cudnn_search():
-            busy_bench = kernel_split(lambda: probe.track(frames[1]),
-                                      {"busy": ""}, calls=3)["busy"]
     d_box = float(np.abs(np.array(boxes["card"])
                          - np.array(boxes["cpu"])).max())
     log(f"  tracker on 9 frames of {PRE_FULL[1]}x{PRE_FULL[0]}, card vs CPU: "
         f"anchors {bests['card']} / {bests['cpu']}, boxes max|d| "
         f"{d_box:.3g} px (tol {TOL_BOX}), smallest top-two pscore margin "
-        f"{min(margins):.3g}; track() {statistics.median(host_ms):.2f} ms "
-        f"host time around the call (crop included), {busy:.2f} ms of device "
-        f"time ({busy_bench:.2f} ms with torch.backends.cudnn.benchmark)")
+        f"{min(margins):.3g}")
     check(min(margins) > 1e-3, f"fixture fault: pscore margins {margins}")
     check(bests["card"] == bests["cpu"] and d_box <= TOL_BOX,
           f"tracker card vs CPU: anchors {bests}, boxes {d_box}")
@@ -3025,7 +2064,7 @@ def preprocess_siamrpn(dev, root: str, profile: bool) -> str:
     log(f"  evaluate_tracker (OPE) on the 9-frame video with the card "
         f"tracker: {res}")
     check(all(np.isfinite(v) for v in res.values()), f"OPE {res}")
-    del net, cpu, trackers, probe
+    del net, cpu, trackers
     release_memory()
     return path
 
@@ -3228,7 +2267,7 @@ def preprocess_chain(cfg, dev, root: str, weights: dict) -> dict:
     return counts
 
 
-def phase_preprocess(cfg, dev, smi: str, profile: bool = False) -> dict:
+def phase_preprocess(cfg, dev, smi: str) -> dict:
     """Phase 16: the preprocessing chain on the card."""
     import shutil
     import tempfile
@@ -3238,8 +2277,8 @@ def phase_preprocess(cfg, dev, smi: str, profile: bool = False) -> dict:
         "(K5, K4) and the Cityscapes evaluator, through the port's CLIs")
     root = tempfile.mkdtemp(prefix="c2m_pre_")
     try:
-        weights = {"panoptic": preprocess_panoptic(dev, root, profile),
-                   "siamrpn": preprocess_siamrpn(dev, root, profile)}
+        weights = {"panoptic": preprocess_panoptic(dev, root),
+                   "siamrpn": preprocess_siamrpn(dev, root)}
         counts = preprocess_chain(cfg, dev, root, weights)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3268,16 +2307,8 @@ def reference_checkpoint(cfg, path: str) -> dict:
     """A seeded C2MTrainModel (phase 4's generator weights, GATv2's lin_r
     biases zero as the reference has none) written as a reference
     ``.pth.tar``; -> its state_dict."""
-    import importlib.util
     from c2m_tpu_torch.train.state import create_train_state
-    # by its path: a ``tests`` package installed on the machine would
-    # shadow the repository's tests directory, which has no __init__.py
-    here = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "torch_reference_layout",
-        os.path.join(here, "tests", "torch_reference_layout.py"))
-    layout = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(layout)
+    layout = load_test_module("torch_reference_layout")
     model = create_train_state(cfg, seed=SEED + 17, device="cpu").model
     model.c2m.load_state_dict(build_model(cfg).state_dict())
     sd = model.state_dict()
@@ -3553,9 +2584,9 @@ def record_convs(model):
     return calls, handles
 
 
-def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
-    """One serving conv shape: the gather kernel vs its plain version, the
-    patch conv vs cuDNN vs float64, device times by kernel of both routes."""
+def patch_shape_row(name, mod, shape, dev) -> dict:
+    """One serving conv shape: the gather kernel vs its plain version on
+    the first and the last chunk, the patch conv vs cuDNN vs float64."""
     from c2m_tpu_torch.nn import layers
     from c2m_tpu_torch.ops.hopper import patches_kernel as pk
     g = torch.Generator(device=dev).manual_seed(SEED + len(shape))
@@ -3574,13 +2605,6 @@ def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
                                      row0, chunk)
         equal = equal and torch.equal(got, want)
         del got, want
-
-    def plain_gather():
-        for row0 in range(0, n_rows, chunk):
-            pk.conv_patches_plain(x, kernel, stride, pad, mod.pad_mode, row0,
-                                  min(chunk, n_rows - row0))
-
-    plain_ms = time_ms(plain_gather, reps=3, warmup=1)
     with torch.no_grad(), on_route("cudnn"):
         cudnn = mod(x)
         xp = layers.pad_spatial(x.double(), [(p, p) for p in pad],
@@ -3591,13 +2615,9 @@ def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
                      None if mod.bias is None else mod.bias.double(),
                      stride).movedim(1, -1)
         del xp
-
-    def run_patch():
-        with torch.inference_mode():
-            return layers.patch_conv(*layers._operands(mod, x), stride, pad,
-                                     mod.pad_mode)
-
-    patch = run_patch()
+    with torch.inference_mode():
+        patch = layers.patch_conv(*layers._operands(mod, x), stride, pad,
+                                  mod.pad_mode)
     scale = float(exact.abs().max())
     errs = {"patch_vs_cudnn": float((patch - cudnn).abs().max()) / scale,
             "patch_vs_f64": float((patch.double() - exact).abs().max())
@@ -3605,141 +2625,21 @@ def patch_shape_row(name, mod, shape, bucket, dev) -> dict:
             "cudnn_vs_f64": float((cudnn.double() - exact).abs().max())
             / scale}
     del patch, cudnn, exact
-
-    def run_cudnn():
-        with torch.no_grad(), on_route("cudnn"):
-            mod(x)
-
-    def ten(fn):
-        """CUDA events around 10 calls in a row: the device's time where it
-        is the bottleneck, as at every shape that matters."""
-        return time_ms(lambda: [fn() for _ in range(10)], reps=3,
-                       warmup=1) / 10
-
-    # the patch route's two parts on the device alone, each replayed from a
-    # CUDA graph: every chunk's gather into the scratch, and every chunk's
-    # GEMM into the output (the weight permuted once outside, as patch_conv
-    # does before its loop)
-    _, weight, bias = (t if t is None else t.detach()
-                       for t in layers._operands(mod, x))
-    w = weight.permute(0, *range(2, weight.dim()), 1).reshape(
-        mod.out_channels, -1)
-    scratch = torch.empty(chunk, k_all, device=dev)
-    y = torch.empty(n_rows, mod.out_channels, device=dev)
-    spans = [(row0, min(chunk, n_rows - row0))
-             for row0 in range(0, n_rows, chunk)]
-
-    def gather_all():
-        for row0, n in spans:
-            pk.conv_patches(x, kernel, stride, pad, mod.pad_mode, row0, n,
-                            out=scratch[:n])
-
-    def gemm_all():
-        for row0, n in spans:
-            if bias is None:
-                torch.mm(scratch[:n], w.t(), out=y[row0:row0 + n])
-            else:
-                torch.addmm(bias, scratch[:n], w.t(), out=y[row0:row0 + n])
-
-    cudnn_ms, patch_ms = ten(run_cudnn), ten(run_patch)
-    gather_ms = device_ms(gather_all, launches=10, reps=3)
-    gemm_ms = device_ms(gemm_all, launches=10, reps=3)
-    del scratch, y
-
-    # the kernels' names from torch.profiler, which now and then records no
-    # kernel of a call: taken up to three times, then None (never a 0)
-    def kernels(fn):
-        for _ in range(3):
-            found = device_kernels(fn)
-            if found:
-                return found
-        return None
-
-    k_cudnn, k_patch = kernels(run_cudnn), kernels(run_patch)
-    top = (max(k_cudnn.items(), key=lambda kv: kv[1]) if k_cudnn
-           else (None, None))
-    gemms = {k: v for k, v in (k_patch or {}).items()
-             if "patches_kernel" not in k}
-    top_patch = (max(gemms.items(), key=lambda kv: kv[1]) if gemms
-                 else (None, None))
-    gflop = 2 * n_rows * k_all * mod.out_channels / 1e9
-    width, wide = pk.patches_route(shape, n_rows)
-    row = {
-        "module": name, "bucket": bucket, "input": list(shape),
-        "kernel": list(kernel), "stride": list(stride), "pad": list(pad),
-        "mode": mod.pad_mode, "features": mod.out_channels, "rows": n_rows,
-        "K": k_all, "chunks": len(spans),
-        "gflop": gflop,
-        "layout": {4: "vec4", 2: "vec2", 1: "scalar"}[width]
-        + ("_64" if wide else ""),
-        "gather_equal_plain": equal, **errs,
-        "cudnn_ms": cudnn_ms,
-        "cudnn_top_kernel": top[0] and top[0][:80], "cudnn_top_ms": top[1],
-        "patch_ms": patch_ms,
-        "gather_ms": gather_ms, "gather_plain_ms": plain_ms,
-        "gemm_ms": gemm_ms,
-        "gemm_top_kernel": top_patch[0] and top_patch[0][:80],
-        "patch_kernels": k_patch and {k[:80]: v for k, v in k_patch.items()},
-        "cudnn_tflops": gflop / cudnn_ms,
-        "patch_tflops": gflop / patch_ms,
-        "gemm_tflops": gflop / gemm_ms,
-        **{f"gather_{k}": v for k, v in bound(
-            (n_rows * k_all + x.numel()) * 4, 0).items()}}
-    log(f"  [{bucket:2d}] {name[:44]:44s} {list(shape)} k{list(kernel)} "
-        f"s{list(stride)} F{mod.out_channels}: {gflop:7.2f} GFLOP; cuDNN "
-        f"{cudnn_ms:7.3f} ms ({row['cudnn_tflops']:5.2f} TFLOP/s, top "
-        f"{str(top[0])[:40]} {top[1]}); patch {patch_ms:7.3f} ms; gather "
-        f"{gather_ms:.3f} (bound {row['gather_bound_ms']:.3f}, plain "
-        f"{plain_ms:.3f}), GEMM "
-        f"{gemm_ms:.3f} ({row['gemm_tflops']:5.2f} TFLOP/s, "
-        f"{str(top_patch[0])[:32]}); err patch-cuDNN {errs['patch_vs_cudnn']:.2e},"
-        f" vs f64 patch {errs['patch_vs_f64']:.2e} cuDNN "
-        f"{errs['cudnn_vs_f64']:.2e}; gather == plain {equal}")
+    log(f"  {name[:44]:44s} {list(shape)} k{list(kernel)} s{list(stride)} "
+        f"F{mod.out_channels}: {-(-n_rows // chunk)} chunk(s); err "
+        f"patch-cuDNN {errs['patch_vs_cudnn']:.2e}, vs f64 patch "
+        f"{errs['patch_vs_f64']:.2e} cuDNN {errs['cudnn_vs_f64']:.2e}; "
+        f"gather == plain {equal}")
     check(equal, f"{name} {shape}: the gather kernel differs from its plain "
           f"version")
-    check(gather_ms > 0 and gemm_ms > 0,
-          f"{name} {shape}: gather {gather_ms} ms, GEMM {gemm_ms} ms")
     check(errs["patch_vs_cudnn"] <= TOL_PATCH_CONV,
           f"{name} {shape}: patch conv vs cuDNN {errs['patch_vs_cudnn']}")
-    return row
-
-
-def route_ab(model, request, dev):
-    """One request's inference on the patch route and the cuDNN route in
-    turns (both under inference_mode), float32 with TF32 off, same inputs. ->
-    (milliseconds of each turn by route, each floating output's gap as
-    perfbench/compare.py defines it: the worst row's mean |diff| over the
-    cuDNN route's mean magnitude)."""
-    batch, z, click = request
-    bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    zt, ct = torch.as_tensor(z, device=dev), torch.as_tensor(click, device=dev)
-    outs, times = {}, {"patch": [], "cudnn": []}
-    with full_float32():
-        for turn in ("patch", "cudnn", "cudnn", "patch") * 3:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with torch.inference_mode(), on_route(turn):
-                o = model.inference(bt, zt, ct, False)
-            torch.cuda.synchronize()
-            times[turn].append((time.perf_counter() - t0) * 1e3)
-            outs[turn] = {k: v.double() for k, v in o.items()
-                          if v.is_floating_point()}
-    gaps = {}
-    for key, ref in outs["cudnn"].items():
-        rows_gap = (outs["patch"][key] - ref).abs().flatten(1).mean(1)
-        gaps[key] = float(rows_gap.max() / ref.abs().mean().clamp_min(1e-30))
-    log(f"  {z.shape[0]}-clip inference, patch / cuDNN route in turns: "
-        f"{statistics.median(times['patch']):.1f} / "
-        f"{statistics.median(times['cudnn']):.1f} ms (medians of 6; "
-        f"{[round(t, 1) for t in times['patch']]} / "
-        f"{[round(t, 1) for t in times['cudnn']]}); worst row's gap "
-        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(gaps.items())))
-    return times, gaps
+    return errs
 
 
 def phase_patch_conv(cfg, dev):
-    """Phase 18 (module docstring). -> (the gather's kernel row, the launch
-    counts of the served requests)."""
+    """Phase 18 (module docstring). -> the launch counts of the served
+    requests."""
     from c2m_tpu_torch.models.c2m import DTYPES
     from c2m_tpu_torch.nn import layers
     from c2m_tpu_torch.ops.hopper import patches_kernel as pk
@@ -3748,14 +2648,14 @@ def phase_patch_conv(cfg, dev):
     cfg32 = copy.deepcopy(cfg)
     cfg32.train_params.dtype = "float32"
     log("[phase 18] the patch route of the float32 convolutions at the "
-        "journal config, TF32 off: route shares, the gather kernel, patch "
-        "vs cuDNN per shape, a request on both routes")
+        "journal config, TF32 off: routes, the gather kernel, patch vs "
+        "cuDNN vs float64 per shape")
     model = build_model(cfg32).to(dev).use_compute_dtype(
         DTYPES[cfg32.train_params.dtype])
     server = ServingModel(model, (1, BUCKET), use_gt_eval=False)
     reqs = requests(cfg32, dev, sizes=(1, BUCKET))
     calls, handles = record_convs(model)
-    shares, by_bucket = {}, {}
+    routes, recorded = {}, []
     reset_launches()
     with full_float32():
         for batch, z, click in reqs:
@@ -3767,76 +2667,39 @@ def phase_patch_conv(cfg, dev):
                 pk.CONV_PATCHES.launches
             server(batch, z, click)
             torch.cuda.synchronize()
-            routed = {k: layers.CONV_CALLS[k] - before[k] for k in before}
-            shares[bs] = {**routed, "gather_launches":
-                          pk.CONV_PATCHES.launches - launches,
-                          "patch_share": routed["patch"] / max(
-                              1, routed["patch"] + routed["cudnn"])}
-            by_bucket[bs] = list(calls)
+            routes[bs] = {k: layers.CONV_CALLS[k] - before[k] for k in before}
+            routes[bs]["gather_launches"] = pk.CONV_PATCHES.launches - launches
+            recorded += calls
             log(f"  request of {bs} clip(s): {len(calls)} conv calls, "
-                f"routes {routed}, patch share {shares[bs]['patch_share']:.3f}"
-                f", gather launches {shares[bs]['gather_launches']}")
+                f"{routes[bs]}")
     for h in handles:
         h.remove()
     counts = read_launches()
-    check(all(v["cudnn"] == 0 and v["patch"] > 0 for v in shares.values())
-          and shares[BUCKET]["gather_launches"] > 0,
+    check(all(v["cudnn"] == 0 and v["patch"] > 0 for v in routes.values())
+          and routes[BUCKET]["gather_launches"] > 0,
           f"a float32 request's convs did not all take the patch route: "
-          f"{shares}")
+          f"{routes}")
 
-    rows = []
+    # one row per conv geometry and input shape
+    shapes = {}
+    for name, mod, shape in recorded:
+        shapes.setdefault((mod.in_channels, mod.out_channels,
+                           tuple(mod.kernel_size), mod.stride, mod.pad,
+                           mod.pad_mode, shape), (name, mod, shape))
+    worst = {}
     with full_float32():
-        for bucket, recorded in sorted(by_bucket.items()):
-            # one row per conv geometry and input shape, with its calls
-            calls = {}
-            for name, mod, shape in recorded:
-                key = (mod.in_channels, mod.out_channels,
-                       tuple(mod.kernel_size), mod.stride, mod.pad,
-                       mod.pad_mode, shape)
-                calls.setdefault(key, [name, mod, shape, 0])[3] += 1
-            for name, mod, shape, n in calls.values():
-                rows.append({**patch_shape_row(name, mod, shape, bucket, dev),
-                             "calls": n})
-                release_memory()
-            total = {k: sum(r[k] * r["calls"] for r in rows
-                            if r["bucket"] == bucket)
-                     for k in ("gflop", "cudnn_ms", "patch_ms", "gather_ms")}
-            log(f"  bucket {bucket}: the request's convs {total['gflop']:.1f}"
-                f" GFLOP; all on cuDNN {total['cudnn_ms']:.2f} ms, all on "
-                f"the patch route {total['patch_ms']:.2f} ms (gather "
-                f"{total['gather_ms']:.2f})")
-
-    times, gaps = route_ab(model, reqs[-1], dev)
+        for name, mod, shape in shapes.values():
+            for k, v in patch_shape_row(name, mod, shape, dev).items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            release_memory()
+    log(f"  {len(shapes)} conv shapes, worst over them: {worst}")
     del server, model
     release_memory()
     log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
-    row = {"shapes": rows, "requests": {str(k): v for k, v in shares.items()},
-           "inference_ms": times, "inference_gaps": gaps}
-    return row, counts
+    return counts
 
 
 # -- phase 19: the patch route's backward in the float32 train step -----------
-
-def stream_ms(make, launches: int = 10, reps: int = 3) -> float:
-    """Median milliseconds of one call on the device alone: ``make()``
-    builds what a call needs (a forward whose backward the call runs, say)
-    and returns the call; both run on one side stream, which a CUDA graph
-    then captures ``launches`` calls on, so that the autograd engine
-    launches the backward's kernels on the captured stream (it takes each
-    node's forward stream)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn = make()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(launches):
-            fn()
-    return time_ms(graph.replay, reps=reps, warmup=1) / launches
-
 
 def record_train_convs(model):
     """Forward hooks on every Conv / Conv3d of ``model`` appending (module
@@ -3865,19 +2728,16 @@ def record_train_convs(model):
 
 
 def train_shape_row(name, mod, shape, need_x, need_w, dev) -> dict:
-    """One conv shape of the float32 train step: forward, input gradient
-    and weight gradient (each where the step needs it) on cuDNN and on the
-    patch route, each part alone on the device; each side's gap against
-    float64; the adjoint kernel alone beside its bound."""
+    """One conv shape of the float32 train step: the output, input
+    gradient and weight gradient (each where the step needs it) on cuDNN
+    and on the patch route, each side's gap against float64."""
     import torch.nn.functional as F
     from c2m_tpu_torch.nn import layers
-    from c2m_tpu_torch.ops.hopper import patches_kernel as pk
     g = torch.Generator(device=dev).manual_seed(SEED + 19 + len(shape))
     x = torch.randn(shape, generator=g, device=dev)
     kernel, stride, pad, mode = (tuple(mod.kernel_size), mod.stride, mod.pad,
                                  mod.pad_mode)
-    nd = len(kernel)
-    conv = F.conv2d if nd == 2 else F.conv3d
+    conv = F.conv2d if len(kernel) == 2 else F.conv3d
     w, b = mod.weight.detach(), mod.bias.detach()
 
     def cudnn_conv(x_, w_, b_):
@@ -3889,11 +2749,6 @@ def train_shape_row(name, mod, shape, need_x, need_w, dev) -> dict:
 
     y_shape = cudnn_conv(x[:1], w, b).shape[1:]
     gy = torch.randn(shape[0], *y_shape, generator=g, device=dev)
-    b_, *spatial, c = shape
-    outs = [pk.out_size(n, k, s_, p) for n, k, s_, p in
-            zip(spatial, kernel, stride, pad)]
-    n_rows, k_all = b_ * int(np.prod(outs)), c * int(np.prod(kernel))
-    gflop = 2 * n_rows * k_all * mod.out_channels / 1e9
 
     def outputs(side_conv, dtype):
         """The output and the gradients the step needs, in ``dtype``."""
@@ -3908,87 +2763,28 @@ def train_shape_row(name, mod, shape, need_x, need_w, dev) -> dict:
 
     # float64 on the card, cuDNN's arithmetic: the yardstick of both sides
     want = outputs(cudnn_conv, torch.float64)
-
-    def gaps(side_conv):
-        got = outputs(side_conv, torch.float32)
-        return {k: float((got[k].double() - v).abs().max()
-                         / v.abs().max().clamp_min(1e-30))
-                for k, v in want.items()}
-
-    row = {"module": name, "input": list(shape), "kernel": list(kernel),
-           "stride": list(stride), "pad": list(pad), "mode": mode,
-           "features": mod.out_channels, "rows": n_rows, "K": k_all,
-           "gflop": gflop, "need_x": need_x, "need_w": need_w}
+    row = {}
     for side, side_conv in (("cudnn", cudnn_conv), ("patch", patch_conv)):
-        row[f"{side}_gap"] = gaps(side_conv)
-
-        def forward(side_conv=side_conv):
-            with torch.no_grad():
-                side_conv(x, w, b)
-
-        row[f"{side}_fwd_ms"] = stream_ms(lambda: forward)
-        for part, on in (("dgrad", need_x), ("wgrad", need_w)):
-            if not on:
-                row[f"{side}_{part}_ms"] = 0.0
-                continue
-
-            def make(part=part, side_conv=side_conv):
-                xs = x.clone().requires_grad_(part == "dgrad")
-                ws = w.clone().requires_grad_(part == "wgrad")
-                bs = b.clone().requires_grad_(part == "wgrad")
-                y = side_conv(xs, ws, bs)
-                wrt = [xs] if part == "dgrad" else [ws, bs]
-                return lambda: torch.autograd.grad(y, wrt, gy,
-                                                   retain_graph=True)
-
-            row[f"{side}_{part}_ms"] = stream_ms(make)
-        row[f"{side}_ms"] = sum(row[f"{side}_{p}_ms"]
-                                for p in ("fwd", "dgrad", "wgrad"))
-    if need_x:
-        # the adjoint alone: every chunk of the patch gradient added back
-        wp = layers._patch_weight(w)
-        chunk = layers._chunk_rows(n_rows, k_all, 4, layers.TRAIN_PATCH_BYTES
-                                   // (1 + need_w))
-        spans = [(r0, min(chunk, n_rows - r0))
-                 for r0 in range(0, n_rows, chunk)]
-        gp = torch.mm(gy.reshape(n_rows, -1)[:chunk], wp)
-        grad_x = torch.empty_like(x)
-
-        def adjoint_all():
-            for r0, n in spans:
-                pk.conv_patches_adjoint(gp[:n], grad_x, kernel, stride, pad,
-                                        mode, r0, accumulate=r0 > 0)
-
-        row["adjoint_ms"] = device_ms(adjoint_all, launches=10, reps=3)
-        row["adjoint_chunks"] = len(spans)
-        row["layout"] = {4: "vec4", 2: "vec2", 1: "scalar"}[
-            pk.patches_route(shape, n_rows)[0]]
-        row.update({f"adjoint_{k}": v for k, v in bound(
-            (n_rows * k_all + x.numel()) * 4, 0).items()})
-        check(row["adjoint_ms"] > 0, f"{name} {shape}: the adjoint read no "
-              f"time")
+        got = outputs(side_conv, torch.float32)
+        row[side] = {k: float((got[k].double() - v).abs().max()
+                              / v.abs().max().clamp_min(1e-30))
+                     for k, v in want.items()}
+        del got
     log(f"  {name[:40]:40s} {list(shape)} k{list(kernel)} s{list(stride)} "
-        f"F{mod.out_channels} x{int(need_x)}w{int(need_w)}: {gflop:6.2f} "
-        f"GFLOP; cuDNN fwd/dgrad/wgrad {row['cudnn_fwd_ms']:.3f}/"
-        f"{row['cudnn_dgrad_ms']:.3f}/{row['cudnn_wgrad_ms']:.3f} ms, patch "
-        f"{row['patch_fwd_ms']:.3f}/{row['patch_dgrad_ms']:.3f}/"
-        f"{row['patch_wgrad_ms']:.3f} ms"
-        + (f", adjoint {row['adjoint_ms']:.3f} (bound "
-           f"{row['adjoint_bound_ms']:.3f}, {row['adjoint_chunks']} chunks)"
-           if need_x else "")
-        + f"; vs f64 cuDNN {row['cudnn_gap']} patch {row['patch_gap']}")
-    for side in ("cudnn", "patch"):
-        for k, v in row[f"{side}_gap"].items():
+        f"F{mod.out_channels} x{int(need_x)}w{int(need_w)}: vs f64 "
+        + "; ".join(f"{side} " + " ".join(f"{k} {v:.2e}" for k, v in
+                                          gaps.items())
+                    for side, gaps in row.items()))
+    for side, side_gaps in row.items():
+        for k, v in side_gaps.items():
             check(v <= TOL_PATCH_CONV, f"{name} {shape}: {side} {k} against "
                   f"float64 {v}")
     return row
 
 
 def phase_patch_backward(cfg, dev):
-    """Phase 19 (module docstring). -> (the adjoint's kernel row, the
-    launch counts of one step)."""
+    """Phase 19 (module docstring). -> the launch counts of one step."""
     from c2m_tpu_torch.nn import layers
-    from c2m_tpu_torch.ops.hopper import patches_kernel as pk
     from c2m_tpu_torch.train.state import create_train_state
     from c2m_tpu_torch.train.step import make_train_step
     t_phase = time.perf_counter()
@@ -3996,7 +2792,7 @@ def phase_patch_backward(cfg, dev):
     cfg32.train_params.dtype = "float32"
     log("[phase 19] the patch route's backward in the float32 train step "
         "at the journal config, TF32 off: routes, the adjoint kernel, patch "
-        "vs cuDNN per shape")
+        "and cuDNN vs float64 per shape")
     state = create_train_state(cfg32, seed=SEED, device=dev)
     batch = train_batch(cfg32, dev, cfg32.train_params.batch_size, 11)
     step = make_train_step(cfg32)
@@ -4040,7 +2836,7 @@ def phase_patch_backward(cfg, dev):
     del state, batch
     release_memory()
 
-    rows, seen = [], {}
+    seen, worst = set(), {}
     with full_float32():
         for i, (name, mod, shape, grad, need_x, need_w) in enumerate(calls):
             # a backward runs only where the output reaches a loss
@@ -4048,75 +2844,16 @@ def phase_patch_backward(cfg, dev):
             key = (mod.in_channels, mod.out_channels, tuple(mod.kernel_size),
                    mod.stride, mod.pad, mod.pad_mode, shape, need_x, need_w)
             if key in seen:
-                seen[key]["calls"] += 1
                 continue
-            seen[key] = {**train_shape_row(name, mod, shape, need_x, need_w,
-                                           dev), "calls": 1,
-                         "step_route": "cudnn" if need_w else "patch"}
-            rows.append(seen[key])
+            seen.add(key)
+            row = train_shape_row(name, mod, shape, need_x, need_w, dev)
+            for side, gaps in row.items():
+                worst[side] = max(worst.get(side, 0.0), *gaps.values())
             release_memory()
-    keys = ("gflop", "cudnn_ms", "patch_ms", "cudnn_fwd_ms", "patch_fwd_ms",
-            "cudnn_dgrad_ms", "patch_dgrad_ms", "cudnn_wgrad_ms",
-            "patch_wgrad_ms", "adjoint_ms", "adjoint_bound_ms")
-    total = {which: {k: sum(r.get(k, 0) * r["calls"] for r in rows
-                            if which == "all" or r["step_route"] == which)
-                     for k in keys}
-             for which in ("all", "patch", "cudnn")}
-    for which, t in total.items():
-        what = {"all": "every conv of the step",
-                "patch": "the convs the step takes on the patch route",
-                "cudnn": "the trained convs (on cuDNN in the step)"}[which]
-        log(f"  {what}: {t['gflop']:.1f} GFLOP forward; on cuDNN {t['cudnn_ms']:.2f} ms "
-            f"(fwd {t['cudnn_fwd_ms']:.2f}, dgrad {t['cudnn_dgrad_ms']:.2f}, "
-            f"wgrad {t['cudnn_wgrad_ms']:.2f}), on the patch route "
-            f"{t['patch_ms']:.2f} ms (fwd {t['patch_fwd_ms']:.2f}, dgrad "
-            f"{t['patch_dgrad_ms']:.2f}, wgrad {t['patch_wgrad_ms']:.2f}); "
-            f"the adjoint {t['adjoint_ms']:.2f} ms against its bound "
-            f"{t['adjoint_bound_ms']:.2f}")
+    log(f"  {len(seen)} conv shapes, worst gap against float64 over output "
+        f"and gradients: {worst}")
     log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
-    return {"shapes": rows, "step_routes": routed,
-            "reach_no_loss": unused, "total": total}, counts
-
-
-def profile_window(name: str, fn, warm_ms: float) -> None:
-    """torch.profiler over one warm call of fn: device time by operator and
-    by kernel, launches and idle share, printed. The profiler slows the host, so the idle share is also
-    given against ``warm_ms``, the same call's time without the profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
-    # device-side events (kernels, memcpys) give the busy time; the same
-    # time attributed to the operators that launched them gives the split
-    # (not the profiler's own ranges, e.g. "Optimizer.step", which cover
-    # kernels that are counted already)
-    on_device = [e for e in avgs if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation]
-    busy = sum(e.self_device_time_total for e in on_device) / 1e3
-    launches = sum(e.count for e in on_device)
-    check(busy > 0, "the profiler saw no device time")
-
-    def top(events, n):
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in events if e.self_device_time_total > 0),
-                      reverse=True)
-        return [f"  {ms:9.3f} ms  x{c:<6d} {key[:100]}" for ms, c, key in rows[:n]]
-
-    lines = [f"{name}: device busy {busy:.2f} ms in {launches} device events; "
-             f"wall {warm_ms:.2f} ms unprofiled (idle share "
-             f"{max(0.0, 1 - busy / warm_ms):.3f}), {wall:.2f} ms under the "
-             f"profiler (idle share {max(0.0, 1 - busy / wall):.3f})",
-             " device time by operator:"]
-    lines += top([e for e in avgs if e.device_type == DeviceType.CPU], 30)
-    lines += [" device time by kernel:"] + top(on_device, 30)
-    for line in lines:
-        log("  [profile] " + line)
+    return counts
 
 
 def main() -> int:
@@ -4124,7 +2861,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this script needs one GPU",
               file=sys.stderr)
         return 2
-    profile = "--profile" in sys.argv[1:]
     from c2m_tpu_torch.config import load_config
     from c2m_tpu_torch.ops import hopper
 
@@ -4142,50 +2878,45 @@ def main() -> int:
     hopper.library()
     log(f"[phase 2] kernels built from c2m_tpu_torch/csrc in "
         f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib)}")
+    phase_kernels(dev)
 
-    rows = phase_kernels(dev)
-    release_memory()
     cfg = load_config()                     # configs/c2m_journal_cityscapes.yaml
-    counts = {"serving": phase_serving(cfg, dev, profile)}
+    counts = {"serving": phase_serving(cfg, dev)}
     with full_float32():
         phase_cpu_parity(cfg, dev)
     release_memory()
-    counts["train"] = phase_train(cfg, dev, profile)
+    counts["train"] = phase_train(cfg, dev)
     with full_float32():
         phase_train_cpu_parity(cfg, dev)
     release_memory()
     counts["onthefly"] = phase_onthefly(cfg, dev)
     release_memory()
     long_cfg = load_config(LONG_YAML)
-    counts["long_serving"] = phase_long_serving(long_cfg, dev, profile)
+    counts["long_serving"] = phase_long_serving(long_cfg, dev)
     release_memory()
     phase_long_raster_parity(long_cfg, dev)
-    counts["long_train"] = phase_long_train(long_cfg, dev, profile)
+    counts["long_train"] = phase_long_train(long_cfg, dev)
     release_memory()
-    program_counts, eval_ms = phase_program(cfg, dev)
-    counts.update(program_counts)
+    counts.update(phase_program(cfg, dev))
     release_memory()
-    counts.update(phase_variants(cfg, dev, profile))
+    counts.update(phase_variants(cfg, dev))
     counts["nccl"] = phase_nccl(cfg, dev)
-    counts["metric_eval"] = phase_metric_nets(cfg, dev, smi, eval_ms)
-    counts["preprocess"] = phase_preprocess(cfg, dev, smi, profile)
+    counts["metric_eval"] = phase_metric_nets(cfg, dev, smi)
+    counts["preprocess"] = phase_preprocess(cfg, dev, smi)
     counts.update(phase_tools(cfg, dev, smi))
-    rows["conv_patches"], counts["patch_conv"] = phase_patch_conv(cfg, dev)
-    rows["conv_patches_adjoint"], counts["patch_train"] = \
-        phase_patch_backward(cfg, dev)
+    counts["patch_conv"] = phase_patch_conv(cfg, dev)
+    counts["patch_train"] = phase_patch_backward(cfg, dev)
     loaded = {m.split(".")[0] for m in sys.modules}
     check(not loaded & {"jax", "jaxlib", "flax", "optax"}, "JAX was imported")
     check("c2m_tpu" not in loaded, "the JAX package c2m_tpu was imported")
 
     # launches: the sum over the paths, each counted from 0 just before the
-    # path was driven; the comparisons of phase 3 are not in it
+    # path was driven
     kernels = []
     for k in all_kernels():
         by_path = {f"launches_{path}": c[k.name] for path, c in counts.items()}
-        kernels.append({"name": k.name, "route": "cuda", "source": k.source,
-                        "replaces": k.replaces,
-                        "launches": sum(by_path.values()), **by_path,
-                        **rows[k.name], "layouts": layouts_in(rows[k.name])})
+        kernels.append({"name": k.name, "source": k.source,
+                        "launches": sum(by_path.values()), **by_path})
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

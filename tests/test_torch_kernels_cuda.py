@@ -4,15 +4,20 @@ CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a GPU. On the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``--noconftest``: the suite's
 conftest.py sets up JAX, which a GPU machine serving the port need not
-have; nothing here uses it). The pytest twin of chip_smoke.py's
-kernel phase, at small shapes and at the serving slice's shapes
-(B=12, T=5, N=16, 128x256), and for K3 and K5 at ragged shapes and at one
-long-horizon clip (24 nodes, 10 frames, 512x1024) and FlowNetC's map.
+have; nothing here uses it). Each kernel at small and ragged shapes,
+at what the paths never give it (every route by name, unaligned views,
+1-wide images, NaN and far-out coordinates), and at every shape the paths
+do give it: journal serving (B=12, T=5, N=16, 128x256) and the journal
+train step (batch 3), the long-horizon config (24 nodes, 10 frames,
+512x1024), FlowNet2 on the fly, and the tools' one clip or frame pair a
+call. The paths' shapes are the ``PATH_*`` lists, which ``chip_smoke.py``
+also runs (its phase 3).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from c2m_tpu_torch.ops import splat
 from c2m_tpu_torch.ops.hopper import correlation_kernel as ck
@@ -72,7 +77,11 @@ def test_resample_kernel_matches_plain(dev, shape, masked, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 17, 33, 3), (2, 17, 33, 8),
-                                   (2, 17, 33, 64), (2, 9, 5, 5)])
+                                   (2, 17, 33, 64), (2, 9, 5, 5)]
+                         + [(2, 17, 33, c) for c in (1, 2, 4, 5, 12, 72, 256,
+                                                      512)]
+                         + [(2, 6, 1, 3), (2, 1, 9, 3), (3, 1, 1, 8),
+                            (2, 5, 1, 64)])
 def test_resample_kernel_on_an_unaligned_view(dev, shape, dtype):
     """A contiguous view whose data_ptr() is not 16-byte aligned takes the
     route of scalar loads and gives the same bits."""
@@ -105,16 +114,43 @@ def test_resample_every_route_by_name(dev, dtype, route):
             wk._launch(img[..., :3].contiguous(), flow, mask, route=route)
 
 
-# (B, H, W, largest |flow|): the serving shape; flows shorter and longer than
-# the halo; H and W that are no multiple of the tile, of 4, or of anything
+# K4's coordinates [B, H, W] at the paths' shapes: a journal request and
+# step, FlowNet2's confidence on the fly (30 frame pairs), precompute_flow's
+# frame pair, make_synthetic_dataset's clip (5 frames), a long-horizon step
+# and request
+PATH_SPLAT = [(60, 128, 256), (15, 128, 256), (30, 128, 256), (1, 128, 256),
+              (5, 128, 256), (10, 512, 1024), (40, 512, 1024)]
+FLOW_KINDS = ["noise", "smooth"]
+
+
+def smooth_flow(g, b, h, w, dev, px=8.0):
+    """A flow as a request's dense flow looks: noise of +-px pixels at 1/16
+    of the resolution, bilinearly enlarged to [b, h, w, 2]."""
+    low = (torch.rand(b, 2, max(2, h // 16), max(2, w // 16), generator=g)
+           - 0.5) * 2 * px
+    return F.interpolate(low.to(dev), size=(h, w), mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1).contiguous()
+
+
+# (B, H, W, largest |flow|): flows shorter and longer than the halo; H and W
+# that are no multiple of the tile, of 4, or of anything; then the paths'
+# shapes at +-10 px
+@pytest.mark.parametrize("flow_kind", FLOW_KINDS)
 @pytest.mark.parametrize("shape,px", [
-    ((3, 16, 40), 10.0), ((60, 128, 256), 10.0), ((2, 50, 70), 3.0),
+    ((3, 16, 40), 10.0), ((2, 50, 70), 3.0),
     ((2, 50, 70), 4.0 * sk.HALO), ((3, 2 * sk.TILE[1], 2 * sk.TILE[0]), 40.0),
-    ((1, sk.TILE[1] + 1, sk.TILE[0] + 4), 10.0), ((2, 7, 5), 2.0)])
-def test_splat_kernel_matches_plain(dev, shape, px):
+    ((1, sk.TILE[1] + 1, sk.TILE[0] + 4), 10.0), ((2, 7, 5), 2.0)]
+    + [(s, 10.0) for s in PATH_SPLAT])
+def test_splat_kernel_matches_plain(dev, shape, px, flow_kind):
+    """On noise of +-px per pixel (masses up to ~4: atomics sum in another
+    order, a few float32 ulps, 1e-5) and on a smooth flow, which piles tens
+    of points onto a pixel where it converges: a float32 sum added in
+    another order then differs by steps of its own size, so a pixel of mass
+    m above 4 is held to the same number of steps, 1e-5 * m / 4."""
     b, h, w = shape
     g = _gen(2)
-    flow = ((torch.rand(b, h, w, 2, generator=g) - 0.5) * 2 * px).to(dev)
+    flow = (((torch.rand(b, h, w, 2, generator=g) - 0.5) * 2 * px).to(dev)
+            if flow_kind == "noise" else smooth_flow(g, b, h, w, dev, px))
     xs = torch.arange(w, device=dev, dtype=torch.float32)
     ys = torch.arange(h, device=dev, dtype=torch.float32)
     base = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], -1)
@@ -122,8 +158,10 @@ def test_splat_kernel_matches_plain(dev, shape, px):
     got = sk.corresponding_map(coords)
     want = sk.corresponding_map_plain(coords)
     torch.cuda.synchronize()
-    # atomics sum in another order: a few float32 ulps of masses <= ~4
-    assert (got - want).abs().max().item() <= 1e-5
+    tol = torch.full_like(want, 1e-5)
+    if flow_kind == "smooth":
+        tol = tol * (want / 4.0).clamp(min=1.0)
+    assert bool(((got - want).abs() <= tol).all())
     flips = (splat.clip_mask(got.clamp(0, 1))
              != splat.clip_mask(want.clamp(0, 1))).float().mean().item()
     assert flips <= 1e-4
@@ -254,12 +292,41 @@ def _special_thetas(kind, th, rng):
     return th
 
 
-@pytest.mark.parametrize("kind", ["general", "half", "zoom", "wild"])
-@pytest.mark.parametrize("shape", [(2, 3, 2, 16, 40), (2, 5, 3, 50, 70),
-                                   (1, 24, 10, 512, 1024)])
+def _wide_objects(inst, ids):
+    """Every node an image-wide object: a band of rows per node, so that
+    every tile's window meets every box (K3 skips nothing)."""
+    b, h, w = inst.shape
+    n = ids.shape[1]
+    for k in range(n):
+        inst[:, (k * h) // n:((k + 1) * h) // n or h, :] = ids[0, k]
+    for k in range(n):
+        inst[:, :, (k * w) // n] = ids[0, k]      # a column across the map
+    return inst
+
+
+WINNER_KINDS = ["general", "half", "zoom", "wild", "wide"]
+# K2 and K3 on the same inputs [B, N, T, H, W] at the paths' maps: K2's
+# journal maps (a request, a step, make_synthetic_dataset's clip), K3's
+# long-horizon maps (a step, a bucket-4 request)
+PATH_WINNER = [(12, 16, 5, 128, 256), (3, 16, 5, 128, 256),
+               (1, 16, 5, 128, 256), (1, 24, 10, 512, 1024),
+               (4, 24, 10, 512, 1024)]
+
+
+@pytest.mark.parametrize("kind", WINNER_KINDS)
+@pytest.mark.parametrize("shape", [(2, 3, 2, 16, 40), (2, 5, 3, 50, 70)]
+                         + PATH_WINNER)
 def test_banded_winner_kernel_matches_plain_and_k2(dev, shape, kind):
+    """K3 against K2 (equal bit for bit) and the plain winner (within 1e-4,
+    0 on half-integer translations), on objects of the usual size under
+    each kind of thetas and on image-wide objects ('wide': K3 skips no
+    tile). On the long-horizon maps K3's plan has a window over its budget
+    on the zoom case and, short of the wild thetas, on no other."""
     inst, ids, valid, th = _raster_inputs(*shape, seed=5)
-    th = _special_thetas(kind, th, np.random.RandomState(6))
+    if kind == "wide":
+        inst = _wide_objects(inst, ids)
+    else:
+        th = _special_thetas(kind, th, np.random.RandomState(6))
     if kind == "half":          # pixels: normalize by the map size
         th[..., 2] /= shape[4]
         th[..., 5] /= shape[3]
@@ -279,17 +346,23 @@ def test_banded_winner_kernel_matches_plain_and_k2(dev, shape, kind):
     want = mk.warp_masks_winner_plain(*args)
     mismatch = (got != want).float().mean().item()
     assert mismatch <= (0.0 if kind == "half" else 1e-4)
-    if kind == "zoom" and shape[3] >= 512:
+    if shape[3] >= 512 and kind != "wild":
         plan = mb.source_windows_plain(
             args[3], shape[3], shape[4], boxes=mb.node_boxes_plain(*args[:3]))
-        assert plan["gather"].any()
+        assert bool(plan["gather"].any()) == (kind == "zoom")
+
+
+# K5 at FlowNetC's grid (max displacement 20, stride 2) at the paths' shapes:
+# the journal train batch's 30 frame pairs on the fly, two and one 512x1024
+# pairs, precompute_flow's one frame pair a call at 128x256
+PATH_CORRELATION = [((30, 16, 32, 256), 20, 2), ((2, 64, 128, 256), 20, 2),
+                    ((1, 16, 32, 256), 20, 2), ((1, 64, 128, 256), 20, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,md,stride", [
     ((2, 9, 13, 20), 4, 2), ((2, 9, 13, 7), 3, 1), ((1, 5, 30, 33), 6, 3),
-    ((1, 4, 4, 8), 20, 2), ((30, 16, 32, 256), 20, 2),
-    ((2, 64, 128, 256), 20, 2)])
+    ((1, 4, 4, 8), 20, 2)] + PATH_CORRELATION)
 def test_correlation_kernel_matches_plain(dev, shape, md, stride, dtype):
     g = _gen(7)
     a = torch.randn(shape, generator=g).to(dtype).to(dev)
@@ -510,9 +583,9 @@ def _frames_inputs(shape, frames, dtype, masked, dev, seed=11):
 
 
 def _close(got, want, name, dtype):
-    """The gradient tolerances of chip_smoke.py: 2e-5 of the largest
-    gradient (float32 sums in another order), 2^-7 for a bfloat16 image
-    gradient (one rounding of such a sum)."""
+    """K1 backward's tolerances: 2e-5 of the largest gradient (float32
+    sums in another order), 2^-7 for a bfloat16 image gradient (one
+    rounding of such a sum)."""
     assert got.dtype == want.dtype and got.shape == want.shape, name
     tol = 2 ** -7 if (name == "image" and dtype == torch.bfloat16) else 2e-5
     scale = max(want.float().abs().max().item(), 1e-6)
@@ -608,24 +681,14 @@ def test_resample_backward_on_unaligned_views(dev, dtype, c):
         _close(a, b, name, dtype)
 
 
-def _wide_objects(inst, ids):
-    """Every node an image-wide object: a band of rows per node, so that
-    every tile's window meets every box (K3 skips nothing)."""
-    b, h, w = inst.shape
-    n = ids.shape[1]
-    for k in range(n):
-        inst[:, (k * h) // n:((k + 1) * h) // n or h, :] = ids[0, k]
-    for k in range(n):
-        inst[:, :, (k * w) // n] = ids[0, k]      # a column across the map
-    return inst
-
-
 @pytest.mark.parametrize("kind", ["general", "wide", "zoom"])
 @pytest.mark.parametrize("shape", [(2, 1, 3, 50, 70), (2, 24, 3, 64, 128),
                                    (1, 100, 2, 96, 160),
-                                   (1, mb.NODES_MAX - 5, 2, 48, 96)])
+                                   (1, mb.NODES_MAX - 5, 2, 48, 96),
+                                   (1, mb.NODES_MAX - 8, 5, 128, 256)])
 def test_banded_winner_at_node_counts(dev, shape, kind):
-    """K3 at N = 1, 24, 100 and near its limit, against K2 (equal) and the
+    """K3 at N = 1, 24, 100 and near its limit (also at the journal
+    map), against K2 (equal) and the
     plain winner, on objects of the usual size, image-wide objects and the
     zoom case."""
     b, n, t, h, w = shape
@@ -652,3 +715,110 @@ def test_banded_winner_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         mb.warp_masks_winner_banded(inst, ids, valid,
                                     torch.zeros(1, n, 1, 6, device=dev))
+
+
+# -- the shapes the paths give the kernels ------------------------------------
+# A bucket-12 journal request folds 60 frames, a journal train step (batch 3)
+# 15; a long-horizon step (one clip) 10 and a bucket-4 request 40. Each
+# kernel is held at every shape of a path, so that what a request or a step
+# runs is what was checked: K1's cases are here, K2-K5's are parameters of
+# their tests above (PATH_SPLAT, PATH_WINNER, PATH_CORRELATION).
+# chip_smoke.py's phase 3 runs every PATH_* case on the card too.
+
+BF16, F32 = torch.bfloat16, torch.float32
+# the decoder skips (H, W, C) of the journal and the long-horizon config:
+# the appearance features of a clip, passed once for its frames
+SKIPS = [(32, 64, 64), (16, 32, 128), (8, 16, 256), (4, 8, 512)]
+LONG_SKIPS = [(128, 256, 64), (64, 128, 128), (32, 64, 256), (16, 32, 512)]
+
+# K1 forward: (output [B*T, H, W, C], frames an image, dtype, masked)
+PATH_RESAMPLE = (
+    [((60, *s), 5, dt, True) for dt in (BF16, F32) for s in SKIPS]  # request
+    + [((60, 16, 32, 256), 1, BF16, True),               # bottleneck
+       ((60, 16, 32, 256), 1, F32, True),
+       ((60, 128, 256, 3), 5, F32, False)]                # previews
+    + [((15, *s), 5, BF16, True) for s in SKIPS]         # step
+    + [((15, 16, 32, 256), 1, BF16, True),
+       ((15, 128, 256, 3), 5, F32, False),                # warped loss
+       ((15, 128, 256, 2), 1, F32, False)]                # flow consistency
+    + [((b, *s), 10, BF16, True) for b in (10, 40) for s in LONG_SKIPS]
+    + [((b, 64, 128, 256), 1, BF16, True) for b in (10, 40)]
+    + [((b, 512, 1024, 3), 10, F32, False) for b in (10, 40)])
+
+# K1 backward, the train steps' shapes: (output shape, frames, dtype,
+# masked, gradients needed of image, flow, mask); the skips also at
+# frames=1 (the image repeated for its frames)
+IMAGE, FLOW, ALL = (True, False, False), (False, True, False), (True,) * 3
+PATH_RESAMPLE_BWD = (
+    [((15, 16, 32, 256), 1, BF16, True, ALL),             # bottleneck
+     ((15, 16, 32, 256), 1, BF16, False, (True, True, False)),
+     ((15, 16, 32, 256), 1, F32, True, ALL),
+     ((15, 128, 256, 3), 5, F32, False, FLOW),            # warped loss
+     ((15, 128, 256, 2), 1, F32, False, (True, True, False))]  # consistency
+    + [((15, *s), f, BF16, True, IMAGE) for f in (5, 1) for s in SKIPS]
+    + [((10, *s), f, BF16, True, IMAGE) for f in (10, 1) for s in LONG_SKIPS]
+    + [((10, 64, 128, 256), 1, BF16, True, ALL),
+       ((10, 512, 1024, 3), 10, F32, False, FLOW)])
+
+
+def _case_id(case):
+    """'60x32x64x64-f5-bfloat16-masked' and the like."""
+    shape, frames, dtype, masked = case[:4]
+    out = (f"{'x'.join(map(str, shape))}-f{frames}-{str(dtype)[6:]}-"
+           f"{'masked' if masked else 'plain'}")
+    if len(case) > 4:
+        out += "-grad-" + "".join("ifm"[i] for i, need in enumerate(case[4])
+                              if need)
+    return out
+
+
+@pytest.mark.parametrize("flow_kind", FLOW_KINDS)
+@pytest.mark.parametrize("case", PATH_RESAMPLE, ids=_case_id)
+def test_resample_kernel_at_the_paths_shapes(dev, case, flow_kind):
+    """K1's forward at every shape a request or a step gives it, the image
+    passed once for its frames where the paths do: equal bit for bit to the
+    plain version and, for frames > 1, to the forward of the repeated
+    image; on noise per pixel and on a smooth flow."""
+    (n, h, w, c), frames, dtype, masked = case
+    img, flow, mask, _ = _frames_inputs((n // frames, h, w, c), frames, dtype,
+                                        masked, dev, seed=21)
+    if flow_kind == "smooth":
+        flow = smooth_flow(_gen(22), n, h, w, dev)
+    got = (wk.resample_masked(img, flow, mask, frames=frames) if masked
+           else wk.resample(img, flow, frames=frames))
+    assert got.shape == (n, h, w, c)
+    assert torch.equal(got, wk.resample_plain(img, flow, mask, frames))
+    if frames > 1:
+        rep = img.repeat_interleave(frames, dim=0)
+        assert torch.equal(got, wk.resample_masked(rep, flow, mask) if masked
+                           else wk.resample(rep, flow))
+
+
+@pytest.mark.parametrize("case", PATH_RESAMPLE_BWD, ids=_case_id)
+def test_resample_backward_at_the_paths_shapes(dev, case):
+    """K1's backward at every shape a train step gives it, through autograd
+    as the step reaches it, against autograd of the plain version; off the
+    scalar64 route the flow and mask gradients, stored without atomics,
+    repeat bit for bit from run to run."""
+    (n, h, w, c), frames, dtype, masked, needs = case
+    img, flow, mask, gout = _frames_inputs((n // frames, h, w, c), frames,
+                                           dtype, masked, dev, seed=23)
+
+    def kernel(i, f, m=None):
+        return (wk.resample(i, f, frames=frames) if m is None
+                else wk.resample_masked(i, f, m, frames=frames))
+
+    def plain(i, f, m=None):
+        return wk.resample_plain(i, f, m, frames)
+
+    got = _grads(kernel, img, flow, mask, gout, needs)
+    want = _grads(plain, img, flow, mask, gout, needs)
+    names = [k for k, need in zip(("image", "flow", "mask"), needs) if need]
+    assert len(got) == len(names)
+    for name, a, b in zip(names, got, want):
+        _close(a, b, name, dtype)
+    runs = [wk._launch_backward(gout, img, flow, mask, *needs, frames)
+            for _ in range(2)]
+    if wk.resample_backward_route(dtype, (n, h, w, c)) != "scalar64":
+        for k in (1, 2):
+            assert runs[0][k] is None or torch.equal(runs[0][k], runs[1][k])

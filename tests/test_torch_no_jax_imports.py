@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``c2m_tpu_torch/`` and not
-``chip_smoke.py``, ``kernel_ab.py``, ``train_torch.py``, ``eval_torch.py``
-or ``yolo_detect_torch.py`` imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
+``chip_smoke.py``, ``train_torch.py``, ``eval_torch.py`` or
+``yolo_detect_torch.py``, nor the three test modules ``chip_smoke.py`` loads
+by path, imports the JAX package ``c2m_tpu``, ``jax``, ``flax`` or
 ``optax``, at top level or inside any function. Every source is parsed with
 ``ast`` (docstrings that name the counterpart file are not imports and
 stay). Each entry point defaults to the card and says so where there is
@@ -21,8 +22,10 @@ FORBIDDEN = {"c2m_tpu", "jax", "jaxlib", "flax", "optax"}
 
 def _sources():
     paths = [os.path.join(REPO, name) for name in
-             ("chip_smoke.py", "kernel_ab.py", "train_torch.py",
-              "eval_torch.py", "yolo_detect_torch.py")]
+             ("chip_smoke.py", "train_torch.py", "eval_torch.py",
+              "yolo_detect_torch.py", "tests/torch_seeded_nets.py",
+              "tests/torch_reference_layout.py",
+              "tests/test_torch_kernels_cuda.py")]
     for root, _, files in os.walk(os.path.join(REPO, "c2m_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -50,7 +53,8 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 def test_the_walk_sees_the_port_and_catches_an_import(tmp_path):
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert {"chip_smoke.py", "train_torch.py", "eval_torch.py",
-            "c2m_tpu_torch/config.py",
+            "tests/torch_seeded_nets.py", "tests/torch_reference_layout.py",
+            "tests/test_torch_kernels_cuda.py", "c2m_tpu_torch/config.py",
             "c2m_tpu_torch/train/trainer.py",
             "c2m_tpu_torch/eval/evaluator.py",
             "c2m_tpu_torch/utils/checkpoint.py",

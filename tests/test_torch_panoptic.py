@@ -6,8 +6,8 @@ its bridge and the segmentation CLI against the JAX package on the CPU.
   1e-4 relative to the largest output.
 - The whole net at [1, 64, 128, 3], both ``upsample`` settings, within
   1e-4 of the largest output, on seeded weights whose BatchNorm statistics
-  are set from one forward (``chip_smoke.calibrate_bn_``). The JAX net is
-  compiled once, with ``upsample=False``; its ``upsample=True`` outputs are
+  are set from one forward (``torch_seeded_nets.calibrate_bn_``). The JAX
+  net is compiled once, with ``upsample=False``; its ``upsample=True`` outputs are
   the JAX module's own last step, ``resize_bilinear(..., align_corners=
   True)`` of those, applied here.
 - Naming: the port's state_dict through ``tools/convert_panoptic.convert``
@@ -32,7 +32,7 @@ import jax.numpy as jnp
 
 from c2m_tpu.models import panoptic_deeplab as jpd
 from c2m_tpu.ops.warp import resize_bilinear as jax_resize
-from chip_smoke import calibrate_bn_
+from tests.torch_seeded_nets import calibrate_bn_
 from c2m_tpu_torch.models import panoptic_deeplab as ppd
 from c2m_tpu_torch.tools import generate_segmentation as gen
 from c2m_tpu_torch.utils import convert

@@ -7,10 +7,10 @@ its tracker against the JAX package on the CPU.
   1e-4 relative to the largest output.
 - The whole net: ``features`` at 127 and 255 and ``heads`` on them within
   1e-4 of the largest output, on seeded weights whose residual branches
-  are damped (``chip_smoke.damp_residuals_``: undamped, float32 rounding
-  alone moved the boxes by more than 1e-3 px within 8 frames) and whose
-  BatchNorm statistics are set from one forward of a template and a search
-  crop of the test's frames (``chip_smoke.calibrate_bn_``).
+  are damped (``torch_seeded_nets.damp_residuals_``: undamped, float32
+  rounding alone moved the boxes by more than 1e-3 px within 8 frames)
+  and whose BatchNorm statistics are set from one forward of a template
+  and a search crop of the test's frames (``torch_seeded_nets.calibrate_bn_``).
 - Naming: the port's state_dict through ``tools/convert_siamrpn.convert``
   gives exactly the JAX tree and the bridge's output (that converter
   reports no unmapped key; the bridge does, and refuses a leaf too many
@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from c2m_tpu.models import siamrpn as jsr
-from chip_smoke import Pair, calibrate_bn_, damp_residuals_
+from tests.torch_seeded_nets import Pair, calibrate_bn_, damp_residuals_
 from c2m_tpu_torch.models import siamrpn as psr
 from c2m_tpu_torch.tools import generate_trajectories as gtraj
 from c2m_tpu_torch.utils import convert

@@ -7,9 +7,9 @@ A net's JAX variable tree comes from ``jax.eval_shape`` of its Flax
 shrink the activations layer by layer until the biases alone are left, so
 each BatchNorm's running statistics are then set from its own input over
 one forward of a seeded batch (biased variance, layer after layer, by
-``chip_smoke.calibrate_bn_``, which seeds the nets on the card too): the
-activations stay of order 1 through the depth and the output depends on
-the input. The calibrated state goes back through the bridge, so both
+``torch_seeded_nets.calibrate_bn_``, which seeds the nets on the card
+too): the activations stay of order 1 through the depth and the output
+depends on the input. The calibrated state goes back through the bridge, so both
 packages hold the same weights.
 """
 
@@ -21,7 +21,7 @@ import torch
 from c2m_tpu.eval import i3d as ji3d
 from c2m_tpu.eval import inception as jinc
 from c2m_tpu.eval import yolov3 as jyolo
-from chip_smoke import calibrate_bn_
+from tests.torch_seeded_nets import calibrate_bn_
 from c2m_tpu_torch.eval import i3d as pi3d
 from c2m_tpu_torch.eval import inception as pinc
 from c2m_tpu_torch.eval import yolov3 as pyolo
