@@ -105,7 +105,12 @@ def z_dim(cfg) -> int:
 
 
 class ServingModel:
-    """Serves padded/bucketed inference from one ``C2MGenerator``."""
+    """Serves padded/bucketed inference from one ``C2MGenerator``.
+
+    Every request returns fresh, writable numpy arrays. On the card they
+    come back in page-locked host memory, which PyTorch's caching host
+    allocator recycles once the caller drops them; on the CPU they are
+    the model's output tensors as numpy."""
 
     def __init__(self, model: C2MGenerator, batch_sizes: Sequence[int] = (1,),
                  use_gt_eval: Optional[bool] = None):
@@ -168,7 +173,8 @@ class ServingModel:
         """Run sampled inference on one request. ``rng`` is accepted for
         call compatibility with the JAX server; inference draws nothing.
         Spans (``trace``): ``c2m.serve.request`` around the call, inside it
-        ``prepare``, ``h2d``, ``inference`` and ``output``."""
+        ``prepare``, ``h2d``, ``inference`` and ``output``; ``output``
+        counts ``pinned_bytes`` and ``pageable_bytes`` returned."""
         with trace.span("c2m.serve.request"):
             with trace.span("c2m.serve.prepare"):
                 bs = int(np.shape(next(iter(batch.values())))[0])
@@ -195,6 +201,28 @@ class ServingModel:
                         raise KeyError(f"unknown outputs {sorted(missing)} "
                                        f"(available: {sorted(out)})")
                     out = {k: out[k] for k in outputs}
-                return {k: (v[:bs].float() if v.is_floating_point()
-                            else v[:bs]).cpu().numpy()
-                        for k, v in out.items()}
+                out = {k: v[:bs].float() if v.is_floating_point()
+                       else v[:bs] for k, v in out.items()}
+                return self._to_host(out)
+
+    def _to_host(self, out: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, np.ndarray]:
+        """The outputs as fresh numpy arrays. From the card: each into its
+        own page-locked block of PyTorch's caching host allocator, every
+        copy queued on the current stream, then one wait on that stream;
+        the array holds its block, which returns to the cache once the
+        caller drops it. On the CPU: ``.numpy()`` as they are. Counts
+        ``pinned_bytes`` and ``pageable_bytes`` on the innermost span."""
+        pinned = self.device.type == "cuda"
+        if pinned:
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in out.items()}
+            for k, v in out.items():
+                host[k].copy_(v, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            out = host
+        arrays = {k: v.numpy() for k, v in out.items()}
+        nbytes = sum(a.nbytes for a in arrays.values())
+        trace.count("pinned_bytes", nbytes if pinned else 0)
+        trace.count("pageable_bytes", 0 if pinned else nbytes)
+        return arrays

@@ -212,8 +212,12 @@ def test_a_spade_request_records_its_spans_and_bytes(spade):
         assert inside(s, "c2m.model.generator")
         assert s.device_ms is None     # the CPU has no device interval
     assert [s.counts["bytes"] for s in norms] == expected
+    # besides the norms, only the request's output copies count anything
+    output = [s for s in spans if s.name == "c2m.serve.output"]
+    assert len(output) == 1
+    assert set(output[0].counts) == {"pinned_bytes", "pageable_bytes"}
     assert all(s.counts == {} for s in spans
-               if s.name != "c2m.model.spade.norm")
+               if s.name not in ("c2m.model.spade.norm", "c2m.serve.output"))
 
 
 def test_a_plain_request_records_none_of_them():

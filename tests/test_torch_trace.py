@@ -3,13 +3,15 @@ under one nested by parent and unit, on the profiler's own timeline,
 bounded; one request of ``ServingModel`` and one ``train_step`` give their
 phases and the model's stages, on the CPU at 64x128 with shrunk widths.
 
-The test marked ``cuda`` checks the device intervals on the card:
+The tests marked ``cuda`` check the device intervals, and that served
+outputs come back in page-locked memory, on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_trace.py``
 (this file imports nothing of JAX).
 """
 
 import threading
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -164,6 +166,21 @@ def test_serving_request_spans():
     assert {s.unit for s in spans} == {r.id for r in requests}
 
 
+def test_serving_output_counts_pageable_bytes():
+    cfg = tiny_cfg()
+    torch.manual_seed(0)
+    server = ServingModel(C2MGenerator(cfg), batch_sizes=(1, 2))
+    trace.clear()
+    with cpu_profile():
+        out = server(*request(cfg, 1, 4))
+    spans = [s for s in trace.records() if s.name == "c2m.serve.output"]
+    assert len(spans) == 1
+    assert spans[0].counts == {
+        "pinned_bytes": 0,
+        "pageable_bytes": sum(a.nbytes for a in out.values())}
+    assert all(a.shape[0] == 1 for a in out.values())
+
+
 def test_train_step_spans():
     cfg = tiny_cfg()
     state = create_train_state(cfg, seed=0, device="cpu")
@@ -221,3 +238,44 @@ def test_device_intervals_on_the_card():
              and s.name in ("c2m.serve.inference", "c2m.serve.output")]
     assert len(parts) == 2
     assert sum(s.device_ms for s in parts) <= req.device_ms + 1e-2
+
+
+@pytest.mark.cuda
+def test_served_outputs_land_in_page_locked_memory(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: page-locked copies come from the "
+                    "card")
+    cfg = tiny_cfg()
+    torch.manual_seed(0)
+    model = C2MGenerator(cfg).to("cuda")
+    server = ServingModel(model, batch_sizes=(1, 2))
+    produced = []
+    real = model.inference
+
+    def inference(*args, **kwargs):
+        produced.append(real(*args, **kwargs))
+        return produced[-1]
+    monkeypatch.setattr(model, "inference", inference)
+    for bs in (1, 2):
+        first = server(*request(cfg, bs, 1))
+        want = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                for k, v in produced[-1].items()}
+        assert sorted(first) == sorted(want)
+        for k, a in first.items():
+            assert a.dtype == want[k].dtype and a.shape == want[k].shape, k
+            assert np.array_equal(a, want[k]), k
+            assert a.flags.writeable, k
+            assert torch.from_numpy(a).is_pinned(), k
+        kept = {k: a.copy() for k, a in first.items()}
+        later = [server(*request(cfg, bs, seed)) for seed in (2, 3)]
+        assert not np.array_equal(later[-1]["generated"], kept["generated"])
+        for k, a in first.items():
+            assert np.array_equal(a, kept[k]), k
+    trace.clear()
+    with cpu_profile():
+        out = server(*request(cfg, 2, 4))
+    spans = [s for s in trace.records() if s.name == "c2m.serve.output"]
+    assert len(spans) == 1
+    assert spans[0].counts == {
+        "pinned_bytes": sum(a.nbytes for a in out.values()),
+        "pageable_bytes": 0}
