@@ -3,8 +3,12 @@
 from __future__ import annotations
 
 import contextlib
+from typing import Dict, Mapping
 
+import numpy as np
 import torch
+
+from c2m_tpu_torch import trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +37,26 @@ def full_float32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = before
+
+
+def to_host(out: Mapping[str, torch.Tensor],
+            device: torch.device) -> Dict[str, np.ndarray]:
+    """``out``, tensors on ``device``, as fresh numpy arrays. From the card:
+    each into its own page-locked block of PyTorch's caching host
+    allocator, every copy queued on ``device``'s current stream, then one
+    wait on that stream; the array holds its block, which returns to the
+    cache once the caller drops it. On the CPU: ``.numpy()`` as they are.
+    Counts ``pinned_bytes`` and ``pageable_bytes`` on the innermost span."""
+    pinned = device.type == "cuda"
+    if pinned:
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in out.items()}
+        for k, v in out.items():
+            host[k].copy_(v, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+        out = host
+    arrays = {k: v.numpy() for k, v in out.items()}
+    nbytes = sum(a.nbytes for a in arrays.values())
+    trace.count("pinned_bytes", nbytes if pinned else 0)
+    trace.count("pageable_bytes", 0 if pinned else nbytes)
+    return arrays

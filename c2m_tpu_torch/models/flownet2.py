@@ -11,6 +11,17 @@ extensions of the reference map to
 and the confidence of :func:`compute_flow_and_conf` is the forward splat
 (kernel K4).
 
+Spans (``trace``; recorded only under a profiler): ``c2m.flow.inference``
+around :func:`compute_flow_and_conf`, ``c2m.flow.conf`` around its splat and
+resizes; ``c2m.flownet.c``, ``.s1``, ``.s2``, ``.sd`` and ``.fusion`` around
+the five sub-networks; ``c2m.flownet.correlation`` around the cost volume,
+counting ``bytes`` (both feature maps read, the volume written) and
+``flops`` (2 x C for each pixel and displacement that stays inside the
+map: the others are zeros); ``c2m.flownet.warp`` around each of the
+four warps with its channel norm, counting ``bytes`` (both images and the
+flow read, the warped image and the norm written); ``c2m.flownet.deconv``
+around each transposed convolution.
+
 Module names are the reference torch checkpoint's, so its ``state_dict``
 loads as it is: ``<net>.<layer>.0.{weight,bias}`` for conv + LeakyReLU and
 deconv + LeakyReLU blocks, ``<net>.predict_flowX.*`` and
@@ -26,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from c2m_tpu_torch import trace
 from c2m_tpu_torch.nn.layers import Conv
 from c2m_tpu_torch.ops.correlation import channel_norm, correlation
 from c2m_tpu_torch.ops.splat import occlusion_map
@@ -52,9 +64,10 @@ class Deconv(nn.ConvTranspose2d):
                          bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                               stride=2, padding=1)
-        return y.permute(0, 2, 3, 1)
+        with trace.span("c2m.flownet.deconv"):
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight,
+                                   self.bias, stride=2, padding=1)
+            return y.permute(0, 2, 3, 1)
 
 
 class _Block(nn.Sequential):
@@ -169,15 +182,29 @@ class FlowNetC(_Refinement):
         # not of the merged stream
         c2a = self.conv2(self.conv1(x1))
         c3a = self.conv3(c2a)
-        c3b = self.conv3(self.conv2(self.conv1(x2)))
-        corr = _leaky(correlation(c3a.contiguous(), c3b.contiguous(),
-                                  max_displacement=20, stride=2))
+        c3b = self.conv3(self.conv2(self.conv1(x2))).contiguous()
+        c3a = c3a.contiguous()
+        with trace.span("c2m.flownet.correlation"):
+            corr = correlation(c3a, c3b, max_displacement=20, stride=2)
+            trace.count("bytes", 2 * c3a.numel() * c3a.element_size()
+                        + corr.numel() * corr.element_size())
+            bsz, h, w, c = c3a.shape
+            trace.count("flops", 2 * c * bsz * _inside(h) * _inside(w))
+        corr = _leaky(corr)
         redir = self.conv_redir(c3a)
         c3_1 = self.conv3_1(torch.cat([redir, corr.to(redir.dtype)], dim=-1))
         c4 = self.conv4_1(self.conv4(c3_1))
         c5 = self.conv5_1(self.conv5(c4))
         c6 = self.conv6_1(self.conv6(c5))
         return self._decode(c6, c5, c4, c3_1, c2a)
+
+
+def _inside(n: int, max_displacement: int = 20, stride: int = 2) -> int:
+    """The (position, displacement) pairs of one axis of n positions whose
+    displaced position stays inside it: the cost volume's entries that need
+    a channel product (the others are zeros)."""
+    return sum(max(0, n - abs(d))
+               for d in range(-max_displacement, max_displacement + 1, stride))
 
 
 class FlowNetSD(nn.Module):
@@ -291,8 +318,7 @@ class FlowNet2(nn.Module):
         self.flownetfusion = FlowNetFusion()
 
     def _refine_input(self, x, x1, x2, flow_up) -> torch.Tensor:
-        warped = resample_pixel(x2, flow_up)
-        diff = channel_norm(x1 - warped)
+        warped, diff = _warp_and_norm(x1, x2, flow_up)
         return torch.cat([x, warped, flow_up / self.div_flow, diff], dim=-1)
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
@@ -302,20 +328,42 @@ class FlowNet2(nn.Module):
         x2 = (im2 - mean[:, 0]) / self.rgb_max
         x = torch.cat([x1, x2], dim=-1)
 
-        flowc_up = _up4_bilinear(self.flownetc(x) * self.div_flow)
-        flows1 = self.flownets_1(self._refine_input(x, x1, x2, flowc_up))
+        with trace.span("c2m.flownet.c"):
+            flowc = self.flownetc(x)
+        flowc_up = _up4_bilinear(flowc * self.div_flow)
+        refine1 = self._refine_input(x, x1, x2, flowc_up)
+        with trace.span("c2m.flownet.s1"):
+            flows1 = self.flownets_1(refine1)
         flows1_up = _up4_bilinear(flows1 * self.div_flow)
-        flows2 = self.flownets_2(self._refine_input(x, x1, x2, flows1_up))
+        refine2 = self._refine_input(x, x1, x2, flows1_up)
+        with trace.span("c2m.flownet.s2"):
+            flows2 = self.flownets_2(refine2)
         flows2_up = _up4_nearest(flows2 * self.div_flow)
         norm_s2 = channel_norm(flows2_up)
-        diff_s2 = channel_norm(x1 - resample_pixel(x2, flows2_up))
+        diff_s2 = _warp_and_norm(x1, x2, flows2_up)[1]
+        with trace.span("c2m.flownet.sd"):
+            flowsd = self.flownets_d(x)
         # flowsd / div_flow is the reference's own (models.py:151)
-        flowsd_up = _up4_nearest(self.flownets_d(x) / self.div_flow)
+        flowsd_up = _up4_nearest(flowsd / self.div_flow)
         norm_sd = channel_norm(flowsd_up)
-        diff_sd = channel_norm(x1 - resample_pixel(x2, flowsd_up))
-        return self.flownetfusion(torch.cat(
+        diff_sd = _warp_and_norm(x1, x2, flowsd_up)[1]
+        fused = torch.cat(
             [x1, flowsd_up, flows2_up, norm_sd, norm_s2, diff_sd, diff_s2],
-            dim=-1))
+            dim=-1)
+        with trace.span("c2m.flownet.fusion"):
+            return self.flownetfusion(fused)
+
+
+def _warp_and_norm(x1: torch.Tensor, x2: torch.Tensor, flow: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2 warped by ``flow`` (resample2d) and the channel norm of x1 minus
+    it (channelnorm), in the span ``c2m.flownet.warp``."""
+    with trace.span("c2m.flownet.warp"):
+        warped = resample_pixel(x2, flow)
+        norm = channel_norm(x1 - warped)
+        trace.count("bytes", sum(t.numel() * t.element_size()
+                                 for t in (x1, x2, flow, warped, norm)))
+    return warped, norm
 
 
 def compute_flow_and_conf(model: nn.Module, im1: torch.Tensor,
@@ -323,15 +371,20 @@ def compute_flow_and_conf(model: nn.Module, im1: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FlowNet wrapper semantics (flow_net.py:54-95): resize to a multiple
     of 64, run, confidence = forward-splat occlusion of the flow, resize
-    back with the height-ratio magnitude rescale."""
-    old = tuple(im1.shape[1:3])
-    new = (max(old[0] // 64 * 64, 64), max(old[1] // 64 * 64, 64))
-    if old != new:
-        im1 = resize_bilinear(im1, new, align_corners=False)
-        im2 = resize_bilinear(im2, new, align_corners=False)
-    flow = model(im1, im2)
-    conf = occlusion_map(flow.contiguous())
-    if old != new:
-        flow = resize_bilinear(flow, old, align_corners=False) * (old[0] / new[0])
-        conf = resize_bilinear(conf, old, align_corners=False)
-    return flow, conf
+    back with the height-ratio magnitude rescale. Spans
+    ``c2m.flow.inference`` around the call and ``c2m.flow.conf`` around the
+    splat and the resizes back."""
+    with trace.span("c2m.flow.inference"):
+        old = tuple(im1.shape[1:3])
+        new = (max(old[0] // 64 * 64, 64), max(old[1] // 64 * 64, 64))
+        if old != new:
+            im1 = resize_bilinear(im1, new, align_corners=False)
+            im2 = resize_bilinear(im2, new, align_corners=False)
+        flow = model(im1, im2)
+        with trace.span("c2m.flow.conf"):
+            conf = occlusion_map(flow.contiguous())
+            if old != new:
+                flow = resize_bilinear(flow, old, align_corners=False) * (
+                    old[0] / new[0])
+                conf = resize_bilinear(conf, old, align_corners=False)
+        return flow, conf

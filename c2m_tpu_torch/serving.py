@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from c2m_tpu_torch import trace
-from c2m_tpu_torch.device import resolve_device
+from c2m_tpu_torch.device import resolve_device, to_host
 from c2m_tpu_torch.models.c2m import DTYPES, C2MGenerator
 from c2m_tpu_torch.parallel import mesh
 from c2m_tpu_torch.utils.convert import (flatten, from_jax_variables,
@@ -203,26 +203,4 @@ class ServingModel:
                     out = {k: out[k] for k in outputs}
                 out = {k: v[:bs].float() if v.is_floating_point()
                        else v[:bs] for k, v in out.items()}
-                return self._to_host(out)
-
-    def _to_host(self, out: Mapping[str, torch.Tensor]
-                 ) -> Dict[str, np.ndarray]:
-        """The outputs as fresh numpy arrays. From the card: each into its
-        own page-locked block of PyTorch's caching host allocator, every
-        copy queued on the current stream, then one wait on that stream;
-        the array holds its block, which returns to the cache once the
-        caller drops it. On the CPU: ``.numpy()`` as they are. Counts
-        ``pinned_bytes`` and ``pageable_bytes`` on the innermost span."""
-        pinned = self.device.type == "cuda"
-        if pinned:
-            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    for k, v in out.items()}
-            for k, v in out.items():
-                host[k].copy_(v, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            out = host
-        arrays = {k: v.numpy() for k, v in out.items()}
-        nbytes = sum(a.nbytes for a in arrays.values())
-        trace.count("pinned_bytes", nbytes if pinned else 0)
-        trace.count("pageable_bytes", 0 if pinned else nbytes)
-        return arrays
+                return to_host(out, self.device)

@@ -115,11 +115,14 @@ def test_resample_every_route_by_name(dev, dtype, route):
 
 
 # K4's coordinates [B, H, W] at the paths' shapes: a journal request and
-# step, FlowNet2's confidence on the fly (30 frame pairs), precompute_flow's
-# frame pair, make_synthetic_dataset's clip (5 frames), a long-horizon step
-# and request
+# step, FlowNet2's confidence on the fly and precompute_flow's run of 3
+# clips (30 frame pairs), precompute_flow's run of one clip (10 pairs) and
+# one frame pair, make_synthetic_dataset's clip (5 frames), a long-horizon
+# step and request, and precompute_flow's call at 512x1024 (one pair:
+# PAIR_PIXELS_PER_CALL)
 PATH_SPLAT = [(60, 128, 256), (15, 128, 256), (30, 128, 256), (1, 128, 256),
-              (5, 128, 256), (10, 512, 1024), (40, 512, 1024)]
+              (5, 128, 256), (10, 512, 1024), (40, 512, 1024),
+              (10, 128, 256), (1, 512, 1024)]
 FLOW_KINDS = ["noise", "smooth"]
 
 
@@ -353,10 +356,13 @@ def test_banded_winner_kernel_matches_plain_and_k2(dev, shape, kind):
 
 
 # K5 at FlowNetC's grid (max displacement 20, stride 2) at the paths' shapes:
-# the journal train batch's 30 frame pairs on the fly, two and one 512x1024
-# pairs, precompute_flow's one frame pair a call at 128x256
+# the journal train batch's 30 frame pairs on the fly and precompute_flow's
+# run of 3 clips, two 512x1024 pairs, precompute_flow's call at 512x1024
+# (one pair: PAIR_PIXELS_PER_CALL), one frame pair at 128x256,
+# precompute_flow's run of one clip (10 pairs)
 PATH_CORRELATION = [((30, 16, 32, 256), 20, 2), ((2, 64, 128, 256), 20, 2),
-                    ((1, 16, 32, 256), 20, 2), ((1, 64, 128, 256), 20, 2)]
+                    ((1, 16, 32, 256), 20, 2), ((1, 64, 128, 256), 20, 2),
+                    ((10, 16, 32, 256), 20, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

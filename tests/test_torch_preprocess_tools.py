@@ -17,7 +17,7 @@ and the ``generate_trajectories``, ``precompute_flow`` and
 - ``generate_trajectories`` on a 30-frame clip with a moving car (random
   tracker, smoke thresholds): 9 rows with the crafted motion.
 - ``precompute_flow`` on a tiny config with ``--limit 1``: 2(T-1) files per
-  kind, equal to the port's ``compute_flow_and_conf`` on the same frames;
+  kind, equal to the tool's ``batch_flows`` on the same frames;
   the JAX ``get_training_set`` and the port's load the clip to equal
   arrays. No JAX FlowNet2 is compiled.
 """
@@ -27,7 +27,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 import yaml
 from PIL import Image
 
@@ -42,7 +41,6 @@ from c2m_tpu_torch.data.dataset import get_training_set as port_training_set
 from c2m_tpu_torch.data.flow_io import read_flow
 from c2m_tpu_torch.eval import cityscapes_eval as pce
 from c2m_tpu_torch.eval import tracker_benchmark as ptb
-from c2m_tpu_torch.models.flownet2 import compute_flow_and_conf
 from c2m_tpu_torch.tools import evaluate_cityscapes as pevalcli
 from c2m_tpu_torch.tools import generate_trajectories as ptraj
 from c2m_tpu_torch.tools import precompute_flow as pflow
@@ -421,30 +419,31 @@ def test_precompute_flow_cli_and_the_loaders(city):
 
     t = pcfg.train_params.num_frames
     model = OnTheFlyFlow(1, 2, device="cpu").model
-    frames = [torch.from_numpy(load_image(str(
+    frames = np.stack([load_image(str(
         city / "train_images" / CITY / f"{CITY}_000000_{i:06d}_leftImg8bit.png"),
-        (TRAIN_H, TRAIN_W)))[None] for i in range(t)]
+        (TRAIN_H, TRAIN_W)) for i in range(t)])
     dp = pcfg.dataset_params
     for kind in ("bw", "fw"):
         files = sorted(os.listdir(city / f"{kind}_of" / CITY))
         assert len(files) == t - 1
         assert len(os.listdir(city / f"{kind}_occ" / CITY)) == t - 1
-    with torch.no_grad():
-        for i in range(1, t):
-            for kind, pair in (("bw", (frames[i], frames[0])),
-                               ("fw", (frames[0], frames[i]))):
-                flow, conf = compute_flow_and_conf(model, *pair)
-                stem = f"{CITY}_000000_{i:06d}_"
-                of = read_flow(str(city / f"{kind}_of" / CITY /
-                                   (stem + getattr(dp, f"{kind}_of_suffix"))))
-                occ = np.array(Image.open(
-                    city / f"{kind}_occ" / CITY /
-                    (stem + getattr(dp, f"{kind}_occ_suffix"))))
-                assert of.shape == (TRAIN_H, TRAIN_W, 2)
-                assert np.isfinite(of).all()
-                np.testing.assert_array_equal(of, flow[0].numpy())
-                np.testing.assert_array_equal(
-                    occ, (conf[0, ..., 0].numpy() * 255).astype(np.uint8))
+    # the tool's one batch of this clip's pairs; each pair on its own
+    # (compute_flow_and_conf at batch 1) is held to it in
+    # tests/test_torch_flownet2_cell.py
+    want = pflow.batch_flows(model, frames[None], 1)
+    for i in range(1, t):
+        for kind in ("bw", "fw"):
+            stem = f"{CITY}_000000_{i:06d}_"
+            of = read_flow(str(city / f"{kind}_of" / CITY /
+                               (stem + getattr(dp, f"{kind}_of_suffix"))))
+            occ = np.array(Image.open(
+                city / f"{kind}_occ" / CITY /
+                (stem + getattr(dp, f"{kind}_occ_suffix"))))
+            assert of.shape == (TRAIN_H, TRAIN_W, 2)
+            assert np.isfinite(of).all()
+            np.testing.assert_array_equal(of, want[f"{kind}_of"][0, i - 1])
+            np.testing.assert_array_equal(
+                occ, (want[f"{kind}_occ"][0, i - 1] * 255).astype(np.uint8))
 
     want = jax_training_set(jcfg)
     got = port_training_set(pcfg)
